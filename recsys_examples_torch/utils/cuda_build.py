@@ -1,0 +1,91 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `recsys_examples_torch/csrc/<name>.cu` exposes a plain C interface and
+is compiled on first use into `recsys_examples_torch/_build/` (listed in
+.gitignore) as `lib<name>-<hash>.so`, the hash covering the source and the
+flags, so an edited source is rebuilt. PyTorch's headers stay out of the
+sources, which keeps a build to seconds. `build()` starts one nvcc per
+missing library, all at once, and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, dict]:
+    """Compile every named source whose library is missing, in parallel.
+
+    Returns {name: {"seconds": wall time of its nvcc (0 if cached),
+    "ptxas": the compiler's register/shared-memory report}}. Raises if any
+    build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, info = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        log = out.with_suffix(".log")
+        if out.exists():
+            info[name] = {"seconds": 0.0,
+                          "ptxas": log.read_text() if log.exists() else ""}
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out, log)
+    failed = []
+    for name, (proc, tmp, out, log) in procs.items():
+        text, _ = proc.communicate()
+        info[name] = {"seconds": time.perf_counter() - t0, "ptxas": text}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{text}")
+            continue
+        log.write_text(text)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return info
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,74 @@
+"""Rules of the PyTorch port: it imports no JAX, flax or JAX-package code,
+and its entry points default to CUDA without falling back to the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "recsys_examples_tpu")
+
+
+def _port_files():
+    pkg = ROOT / "recsys_examples_torch"
+    files = sorted(p for p in pkg.rglob("*.py")
+                   if "_build" not in p.relative_to(pkg).parts)   # build output
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    bad = [
+        f"{p.relative_to(ROOT)}: {name}"
+        for p in files for name in _imports(p)
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_cuda():
+    from recsys_examples_torch.dynamicemb.exportable_tables import (
+        InferenceTableState,
+    )
+    from recsys_examples_torch.inference.inference_ranking_gr import (
+        InferenceDenseModule,
+        InferenceRankingGR,
+    )
+    from recsys_examples_torch.inference.kvcache import (
+        KVCacheConfig,
+        create_kvcache,
+    )
+    from recsys_examples_torch.modules.config import HSTUConfig
+    from recsys_examples_torch.utils.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    kv_cfg = KVCacheConfig(num_layers=1, num_heads=1, head_dim=8,
+                           num_pages=4, max_users=2, max_pages_per_user=2)
+    cfg = HSTUConfig(hidden_size=8, num_layers=1, num_attention_heads=1,
+                     kv_channels=8, dtype=torch.float32)
+    table = InferenceTableState(torch.zeros(2, 2, dtype=torch.int64),
+                                torch.zeros(4, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_kvcache(kv_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceRankingGR(cfg, kv_cfg, InferenceDenseModule(cfg, (4, 1)),
+                           table)
+    assert resolve_device("cpu").type == "cpu"
+    assert create_kvcache(kv_cfg, device="cpu").k_pages.device.type == "cpu"

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100: build its CUDA kernels, hold
 each against its plain PyTorch version, run KV-cached HSTU ranking serving
-at full width through them, and print one JSON summary.
+and the HSTU ranking train step at full width through them, and print one
+JSON summary.
 
 Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
@@ -19,6 +20,23 @@ Phases (any failure exits non-zero):
              have launched layers x calls times.
   4. serve   a DynamicBatcher over a RankingServer answers requests from a
              few users, some repeated, over the 64/256/1024 buckets.
+  5. jagged  the jagged SiLU attention kernels K1 (forward), K2 (dq) and K3
+             (dk, dv) through `hstu_attn_varlen` and its backward() against
+             the plain forward and backward in bf16: H 4 x 256, lengths
+             [2000, 37, 1024, 129, 0, 1], max_seqlen 2048, in the mask
+             families causal, contextual + targets in groups of 2, window 64
+             (also with a min-full tail), non-causal; and H 2 x 64.
+  6. train   (a) one GRTrainer step through the kernels and the same step
+             with the plain attention, from the same params, at 2 layers,
+             batch 8, history 512, on two batches, and a faulted control
+             that the comparison must catch; (b) K1-K3 at the full-width batch's
+             attention shape against the plain versions run sequence by
+             sequence, then bench.py's ranking train step (8 layers, hidden
+             1024, 4 x 256, bf16, batch 32, history 4096, all five tables
+             static, item/user_id at 1M rows): a warm-up pass over 7
+             batches, then 6 timed steps over 6 of them, with step ms, TFLOP/s and MFU from
+             hstu_flops_exact, launch counts of 8 per step for each kernel,
+             and a torch.profiler step.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -250,7 +268,8 @@ def phase_main(attn):
         raise SystemExit("phase3: non-finite logits")
     if not (new_lens == cand).all():
         raise SystemExit(f"phase3: warm call recomputed {new_lens.tolist()} tokens")
-    profile_call(lambda: runner.forward_with_kvcache(users, seq, lens, ncand, cand))
+    profile_call(lambda: runner.forward_with_kvcache(users, seq, lens, ncand, cand),
+                 "phase3 profile of one warm call")
 
     # a fresh full recompute on the dense gather path (no kernel, no cache)
     fresh = InferenceRankingGR(cfg, kv_cfg, dense, table, device="cuda")
@@ -270,9 +289,10 @@ def phase_main(attn):
     return runner, dict(cold_ms=cold_ms, warm_ms=warm_ms, launches=launches)
 
 
-def profile_call(fn, top=10):
+def profile_call(fn, label, top=10, groups=None):
     """Device time of one call by kernel name (torch.profiler), and the
-    share of the call's wall time the device was busy."""
+    share of the call's wall time the device was busy. `groups`: kind ->
+    substrings of kernel names, for a breakdown by kind."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -281,11 +301,22 @@ def profile_call(fn, top=10):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # device work only: user annotations (e.g. "Optimizer.step#Adam.step")
+    # also carry device time, and would count their kernels twice
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"phase3 profile of one warm call: wall_ms={wall_ms:.2f} "
+    log(f"{label}: wall_ms={wall_ms:.2f} "
         f"device_busy_ms={busy_ms:.2f} ({100 * busy_ms / wall_ms:.1f}% busy, "
         f"{len(events)} kernel names)")
+    if groups:
+        totals = dict.fromkeys([*groups, "other"], 0.0)
+        for e in events:
+            name = e.key.lower()
+            g = next((g for g, keys in groups.items() if any(k in name for k in keys)),
+                     "other")
+            totals[g] += e.self_device_time_total / 1e3
+        log("  by kind: " + ", ".join(f"{g} {ms:.2f} ms" for g, ms in totals.items()))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -337,6 +368,413 @@ def phase_serve(runner, attn):
         raise SystemExit("phase4: not every request was answered through the kernel")
 
 
+# ---------------------------------------------------------------- phase 5
+def jagged_attention_work(lengths, H, dh, opts, ctx=None, tgt=None, dev="cuda"):
+    """Valid (row, col) pairs of this data's mask, and each kernel's bytes
+    (inputs read once, outputs written once) and FLOPs: K1 runs 2 products
+    per pair (S, P v), K2 3 (S, dP, dq), K3 4 (S, dP, dk, dv)."""
+    from recsys_examples_torch.ops.hstu_attention_ref import get_valid_attn_mask
+
+    pairs = 0
+    for b, n in enumerate(lengths):
+        if n == 0:
+            continue
+        mask = get_valid_attn_mask(
+            opts.causal, int(n), torch.tensor([n], device=dev),
+            num_targets=None if tgt is None else torch.tensor([tgt[b]], device=dev),
+            max_attn_len=opts.max_attn_len,
+            num_contextuals=None if ctx is None else torch.tensor([ctx[b]], device=dev),
+            min_full_attn_seq_len=opts.min_full_attn_seq_len,
+            target_group_size=opts.target_group_size)
+        pairs += int(mask.sum().item())
+    T = int(sum(lengths))
+    tile = T * H * dh * 2
+    per_pair = 2 * H * dh
+    return {"pairs": pairs,
+            "fwd": (4 * tile, 2 * per_pair * pairs),
+            "dq": (5 * tile, 3 * per_pair * pairs),
+            "dkv": (6 * tile, 4 * per_pair * pairs)}
+
+
+def bound_of(nbytes, flops, peak=BF16_FLOPS):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def attention_operands(gen, lengths, H, dh, pad=5):
+    """Packed bf16 q, k, v and dO [T + pad, H, dh]; the pad rows belong to
+    no sequence. v and dO are scaled so outputs and grads are of order 1."""
+    T = int(sum(lengths)) + pad
+    r = lambda s: (s * torch.randn(T, H, dh, generator=gen, device="cuda")).to(torch.bfloat16)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), device="cuda")
+    return r(1.0), r(1.0), r(32.0), r(32.0), offsets
+
+
+def check_jagged_case(name, gen, lengths, H, dh, max_seqlen, kw, ctx=None, tgt=None,
+                      time_it=False):
+    """K1-K3 through `hstu_attn_varlen` (forward, then backward() of dO)
+    against the plain forward and backward on the same inputs."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.ops.hstu_attention_ref import (
+        hstu_attn_bwd_ref, hstu_mha_reference)
+
+    q, k, v, do, offsets = attention_operands(gen, lengths, H, dh)
+    i32 = lambda x: None if x is None else torch.tensor(x, dtype=torch.int32, device="cuda")
+    nc, nt = i32(ctx), i32(tgt)
+    alpha = 1.0 / dh ** 0.5
+    opts = ha.AttnOptions(max_seqlen=max_seqlen, alpha=alpha, scaling_seqlen=max_seqlen,
+                          **kw)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = ha.hstu_attn_varlen(*leaves, offsets, max_seqlen, num_contextuals=nc,
+                              num_targets=nt, alpha=alpha, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    got = [out.detach()] + [x.grad for x in leaves]
+    ref_kw = dict(num_contextuals=nc, num_targets=nt, **opts.ref_kwargs())
+    want = [hstu_mha_reference(max_seqlen, alpha, q, k, v, offsets, **ref_kw),
+            *hstu_attn_bwd_ref(max_seqlen, alpha, q, k, v, do, offsets, **ref_kw)]
+    total = int(sum(lengths))
+    errs = {}
+    for tag, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        pad_zero = bool((g[total:] == 0).all().item())
+        ok = within(err, scale) and pad_zero and bool(torch.isfinite(g).all().item())
+        log(f"phase5 {name} {tag}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+            f"tol={2e-2 * scale + 1e-3:.3e} (2e-2*max|ref|+1e-3) pad_rows_zero={pad_zero}")
+        if not ok:
+            raise SystemExit(f"phase5 {name}: {tag} disagrees with its plain version")
+        errs[tag] = err
+    res = {"err": max(errs.values()), "errs": errs}
+    if time_it:
+        o32 = offsets.to(torch.int32)
+        args = (q, k, v, o32, nc, nt, opts)
+        bargs = (q, k, v, do, o32, nc, nt, opts)
+        work = jagged_attention_work(lengths, H, dh, opts, ctx, tgt)
+        res["kernel_ms"] = {
+            "fwd": cuda_time_ms(lambda: ha.hstu_attn_fwd_cuda(*args), 10),
+            "dq": cuda_time_ms(lambda: ha.hstu_attn_bwd_dq_cuda(*bargs), 10),
+            "dkv": cuda_time_ms(lambda: ha.hstu_attn_bwd_dkv_cuda(*bargs), 10)}
+        plain_fwd = cuda_time_ms(lambda: hstu_mha_reference(
+            max_seqlen, alpha, q, k, v, offsets, **ref_kw), 3)
+        plain_bwd = cuda_time_ms(lambda: hstu_attn_bwd_ref(
+            max_seqlen, alpha, q, k, v, do, offsets, **ref_kw), 3)
+        # the plain backward computes dq, dk and dv together
+        res["plain_ms"] = {"fwd": plain_fwd, "dq": plain_bwd, "dkv": plain_bwd}
+        res["bound"] = {kk: bound_of(*work[kk]) for kk in ("fwd", "dq", "dkv")}
+        for kk in ("fwd", "dq", "dkv"):
+            nbytes, flops = work[kk]
+            log(f"phase5 {name} {kk}: kernel_ms={res['kernel_ms'][kk]:.4f} "
+                f"plain_ms={res['plain_ms'][kk]:.4f} bound_ms={res['bound'][kk][0]:.4f} "
+                f"({res['bound'][kk][1]}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
+                f"{work['pairs']} valid pairs)")
+    return res
+
+
+def phase_jagged():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    H, dh, N = 4, 256, 2048
+    lengths = [2000, 37, 1024, 129, 0, 1]
+    ctx = [3, 3, 3, 3, 0, 1]
+    tgt = [64, 4, 10, 7, 0, 0]
+    cases = {
+        "causal": (dict(), None, None),
+        "ctx_tgt_group2": (dict(target_group_size=2), ctx, tgt),
+        "window64": (dict(max_attn_len=64), None, None),
+        "window64_minfull": (dict(max_attn_len=64, min_full_attn_seq_len=128), None, tgt),
+        "noncausal": (dict(causal=False), None, None),
+    }
+    res = {}
+    for name, (kw, c, t) in cases.items():
+        res[name] = check_jagged_case(name, gen, lengths, H, dh, N, kw, c, t,
+                                      time_it=name == "causal")
+    res["odd_h2_dh64"] = check_jagged_case(
+        "odd_h2_dh64", gen, [77, 0, 300, 5], 2, 64, 320,
+        dict(target_group_size=3), [2, 0, 1, 0], [9, 0, 31, 2])
+    return res
+
+
+# ---------------------------------------------------------------- phase 6
+N_CTX, TASKS, EMB = 3, 8, 128
+BIG_VOCAB = 1_000_000        # configs/ranking_random.gin item_vocab_size
+
+
+def bench_model(layers, device="cuda"):
+    """bench.py's HSTU ranking configuration, all five tables static."""
+    from recsys_examples_torch.models.ranking_gr import RankingGR
+    from recsys_examples_torch.modules.config import (
+        EmbeddingConfig, HSTUConfig, PositionEncodingConfig, RankingConfig)
+
+    cfg = HSTUConfig(
+        hidden_size=1024, num_layers=layers, num_attention_heads=4, kv_channels=256,
+        hidden_dropout=0.0, dtype=torch.bfloat16, target_group_size=1,
+        recompute_layer=False,
+        position_encoding_config=PositionEncodingConfig(num_position_buckets=8192),
+        item_embedding_dim=EMB, contextual_embedding_dim=EMB)
+    tables = (("item", BIG_VOCAB), ("user_id", BIG_VOCAB), ("action", 100),
+              ("user_age", 100), ("item_category_l1", 50))
+    task = RankingConfig(
+        embedding_configs=tuple(EmbeddingConfig((n,), n, v, EMB) for n, v in tables),
+        prediction_head_arch=(512, TASKS), num_tasks=TASKS)
+    return RankingGR(cfg, task, device=device)
+
+
+def bench_batch(seed, batch, max_hist):
+    """bench.py's batch with the token capacity equal to the batch's exact
+    item total (the length draw reproduced from the seed, as bench.py
+    does, without its rounding up to 2048)."""
+    from recsys_examples_torch.data.hstu_batch import _zipf_lengths, random_hstu_batch
+
+    total = int(_zipf_lengths(np.random.default_rng(seed), 1.2, batch, max_hist).sum())
+    return random_hstu_batch(
+        seed=seed, batch_size=batch, max_history_len=max_hist, item_vocab=BIG_VOCAB,
+        action_vocab=100,
+        contextual_vocabs={"user_id": BIG_VOCAB, "user_age": 100, "item_category_l1": 50},
+        max_num_candidates=0, num_tasks=TASKS, zipf_a=1.2, token_capacity=total,
+        value_zipf={"item": 1.05, "user_id": 1.05})
+
+
+def seqlens_of(batch):
+    """Post-preprocess lengths: 3 contextual tokens + interleaved history."""
+    return N_CTX + 2 * np.asarray(batch.features["item"].lengths, np.int64)
+
+
+def plain_attention(alpha_scale=1.0):
+    """Swap the autograd Function's dispatch to the plain versions (CUDA
+    tensors included) for a comparison run; returns the undo. alpha_scale
+    other than 1 makes a faulted control (scores too large)."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.ops.hstu_attention_ref import (
+        hstu_attn_bwd_ref, hstu_mha_reference)
+
+    saved = ha.hstu_attn_fwd, ha.hstu_attn_bwd
+    ha.hstu_attn_fwd = lambda q, k, v, so, nc, nt, o: hstu_mha_reference(
+        o.max_seqlen, o.alpha * alpha_scale, q, k, v, so, num_contextuals=nc,
+        num_targets=nt, **o.ref_kwargs())
+    ha.hstu_attn_bwd = lambda q, k, v, do, so, nc, nt, o: hstu_attn_bwd_ref(
+        o.max_seqlen, o.alpha * alpha_scale, q, k, v, do.to(v.dtype), so,
+        num_contextuals=nc, num_targets=nt, **o.ref_kwargs())
+
+    def undo():
+        ha.hstu_attn_fwd, ha.hstu_attn_bwd = saved
+    return undo
+
+
+def main_shape_kernels(batch):
+    """K1-K3 at the main path's attention shape (the full-width seed-0
+    batch: its offsets, 3 contextual rows each, H 4 x 256, the static bound
+    8195 as scaling): kernel time, bound, and the kernels against the plain
+    versions run sequence by sequence (the dense-padded plain version of the
+    whole batch would need [32, 4, 8195, 8195] fp32 scores)."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.ops.hstu_attention_ref import (
+        hstu_attn_bwd_ref, hstu_mha_reference)
+
+    lengths = [int(n) for n in seqlens_of(batch)]
+    N = 2 * 4096 + N_CTX
+    H, dh = 4, 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q, k, v, do, offsets = attention_operands(gen, lengths, H, dh, pad=0)
+    o32 = offsets.to(torch.int32)
+    nc = torch.full((len(lengths),), N_CTX, dtype=torch.int32, device="cuda")
+    opts = ha.AttnOptions(max_seqlen=N, alpha=dh ** -0.5, scaling_seqlen=N)
+    args, bargs = (q, k, v, o32, nc, None, opts), (q, k, v, do, o32, nc, None, opts)
+    fns = {"fwd": lambda: ha.hstu_attn_fwd_cuda(*args),
+           "dq": lambda: ha.hstu_attn_bwd_dq_cuda(*bargs),
+           "dkv": lambda: ha.hstu_attn_bwd_dkv_cuda(*bargs)}
+    got = [fns["fwd"](), fns["dq"](), *fns["dkv"]()]
+    ms = {kk: cuda_time_ms(f, 5) for kk, f in fns.items()}
+
+    errs = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
+    scales = dict.fromkeys(errs, 0.0)
+    plain = {"fwd": 0.0, "bwd": 0.0}
+    kw = dict(scaling_seqlen=N, num_contextuals=nc[:1])
+    for b, n in enumerate(lengths):
+        s = slice(int(offsets[b]), int(offsets[b + 1]))
+        one = torch.tensor([0, n], device="cuda")
+        seq = [x[s] for x in (q, k, v, do)]
+        plain["fwd"] += cuda_time_ms(lambda: hstu_mha_reference(
+            n, opts.alpha, *seq[:3], one, **kw), 1)
+        plain["bwd"] += cuda_time_ms(lambda: hstu_attn_bwd_ref(
+            n, opts.alpha, *seq, one, **kw), 1)
+        want = [hstu_mha_reference(n, opts.alpha, *seq[:3], one, **kw),
+                *hstu_attn_bwd_ref(n, opts.alpha, *seq, one, **kw)]
+        for tag, g, w in zip(errs, got, want):
+            errs[tag] = max(errs[tag], (g[s].float() - w.float()).abs().max().item())
+            scales[tag] = max(scales[tag], w.float().abs().max().item())
+        del want
+    torch.cuda.empty_cache()
+    for tag in errs:
+        log(f"phase6 main-shape {tag}: max_abs_err={errs[tag]:.3e} "
+            f"max|ref|={scales[tag]:.3e} tol={2e-2 * scales[tag] + 1e-3:.3e}")
+        if not within(errs[tag], scales[tag]):
+            raise SystemExit(f"phase6: {tag} disagrees with its plain version at the "
+                             "main path's shape")
+    work = jagged_attention_work(lengths, H, dh, opts, ctx=[N_CTX] * len(lengths))
+    res = {"ms": ms, "errs": errs,
+           "plain_ms": {"fwd": plain["fwd"], "dq": plain["bwd"], "dkv": plain["bwd"]},
+           "bound": {kk: bound_of(*work[kk]) for kk in fns}}
+    for kk in fns:
+        nbytes, flops = work[kk]
+        log(f"phase6 main-shape {kk}: T={sum(lengths)} kernel_ms={ms[kk]:.4f} "
+            f"plain_ms(per sequence)={res['plain_ms'][kk]:.2f} "
+            f"bound_ms={res['bound'][kk][0]:.4f} ({res['bound'][kk][1]}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
+            f"{flops / ms[kk] / 1e9:.1f} TFLOP/s)")
+    return res
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+# Phase 6a's limits: loss relative error, and the worst param's gradient and
+# Adam-update relative L2. Each sits between the sound readings' largest and
+# the faulted control's reading (PERF.md, PR 2 findings, H100: loss 1.7e-7 /
+# 1.6e-6, grad 3.3e-2 / 8.2e-2, update 5.2e-4 / 6.7e-2).
+STEP_LIMITS = {"loss": 5e-7, "grad": 5e-2, "update": 5e-3}
+UPDATE_FLOOR = 1 / 16    # bf16 noise floor of a gradient, relative to its param's largest
+
+
+def phase_train_compare():
+    """(a) one GRTrainer step through the kernels against the same step with
+    the plain attention, from the same params, at 2 layers (bf16), on two
+    batches; then a faulted control, the plain step with scores 2% too large
+    (alpha x 1.02), which each check must catch. Compared: the loss,
+    each param's gradient, and each param's Adam update on the elements
+    whose plain gradient is above UPDATE_FLOOR of its param's largest
+    (Adam's first step moves an element by about lr * sign(g), so below the
+    noise floor the update is noise too)."""
+    from recsys_examples_torch.training.train_state import make_optimizer
+    from recsys_examples_torch.training.trainer import GRTrainer
+
+    model = bench_model(2)
+    trainer = GRTrainer(model, make_optimizer(1e-3, "adam"))
+    trainer.init(torch.Generator(device="cuda").manual_seed(SEED))
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def step(batch, alpha_scale=None):
+        undo = None if alpha_scale is None else plain_attention(alpha_scale)
+        try:
+            s = trainer.init(torch.Generator(device="cuda").manual_seed(SEED))
+            with torch.no_grad():
+                for n, p in s.model.named_parameters():
+                    p.copy_(p0[n])
+            s, m = trainer.train_step(s, batch)
+        finally:
+            if undo:
+                undo()
+        params = dict(s.model.named_parameters())
+        return (m["loss"].item(), {n: p.grad.detach().clone() for n, p in params.items()},
+                {n: p.detach() - p0[n] for n, p in params.items()})
+
+    def readings(ref, got):
+        """{check: (reading, worst param)} of `got` against `ref`."""
+        (loss_r, grad_r, upd_r), (loss_g, grad_g, upd_g) = ref, got
+        upd = []
+        for n, g in grad_r.items():
+            keep = g.abs() > UPDATE_FLOOR * g.abs().max()
+            if keep.any():
+                upd.append((rel_l2(upd_g[n][keep], upd_r[n][keep]), n))
+        return {"loss": (abs(loss_g - loss_r) / abs(loss_r), "-"),
+                "grad": max((rel_l2(grad_g[n], grad_r[n]), n) for n in grad_r),
+                "update": max(upd)}
+
+    def show(label, r):
+        return f"{label}: " + ", ".join(
+            f"{k} {v:.3e} ({n}, limit {STEP_LIMITS[k]:g})" for k, (v, n) in r.items())
+
+    sound = []
+    for seed in (SEED + 7, SEED + 8):
+        host = bench_batch(seed, 8, 512)
+        batch = host.to("cuda")
+        ref = step(batch, alpha_scale=1.0)
+        sound.append(readings(ref, step(batch)))
+        log("phase6a " + show(f"batch seed {seed}, {int(seqlens_of(host).sum())} tokens, "
+                              "kernels against plain", sound[-1]))
+    control = readings(ref, step(batch, alpha_scale=1.02))
+    log("phase6a " + show("control, plain with alpha x 1.02 against plain", control))
+    if any(r[k][0] >= lim for r in sound for k, lim in STEP_LIMITS.items()):
+        raise SystemExit("phase6a: the step through the kernels disagrees with the plain step")
+    missed = [k for k, lim in STEP_LIMITS.items() if control[k][0] < lim]
+    if missed:
+        raise SystemExit(f"phase6a: the faulted control passes the {missed} check")
+    del ref, p0
+    torch.cuda.empty_cache()
+
+
+def phase_train():
+    """(a), then (b) the full-width train step: bench.py's configuration with
+    static tables, a warm-up pass over the batch pool, then a timed pass."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.training.train_state import make_optimizer
+    from recsys_examples_torch.training.trainer import GRTrainer
+    from recsys_examples_torch.utils.perf import H100_PEAK_TFLOPS, hstu_flops_exact
+
+    phase_train_compare()
+    host = [bench_batch(s, 32, 4096) for s in range(7)]
+    batches = [b.to("cuda") for b in host]
+    main_shape = main_shape_kernels(host[0])
+
+    model = bench_model(8)
+    trainer = GRTrainer(model, make_optimizer(1e-3, "adam"))
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase6b config: 8 layers, hidden 1024, 4x256, bf16, head (512, 8), "
+        f"tables item/user_id {BIG_VOCAB} x {EMB} + 3 small, {n_params / 1e6:.1f}M params")
+    # warm-up: one pass over the pool, so the allocator has grown to the
+    # largest batch before the timed pass (as bench.py's warm-up cycle)
+    for b in batches:
+        state, m = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    log(f"phase6b warm-up over {len(batches)} batches, last loss={m['loss'].item():.5f}")
+
+    counters = (ha.hstu_attn_fwd_cuda, ha.hstu_attn_bwd_dq_cuda, ha.hstu_attn_bwd_dkv_cuda)
+    for c in counters:
+        c.launches = 0
+    step_ms, losses = [], []
+    for b in batches[1:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = trainer.train_step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(m["loss"].item())
+    launches = [c.launches for c in counters]
+    steps = len(step_ms)
+    log(f"phase6b steps={steps} launches fwd/dq/dkv={launches} (expected {8 * steps} each) "
+        f"losses={[round(x, 5) for x in losses]}")
+    if launches != [8 * steps] * 3:
+        raise SystemExit("phase6b: the attention kernels did not carry every layer")
+    if not all(np.isfinite(losses)):
+        raise SystemExit("phase6b: non-finite loss")
+
+    tokens = [int(seqlens_of(b).sum()) for b in host[1:]]
+    flops = [hstu_flops_exact(seqlens_of(b), N_CTX, 0, 1024, 4, 256, 8) for b in host[1:]]
+    tflops = [f / (ms * 1e-3) / 1e12 for f, ms in zip(flops, step_ms)]
+    for t, ms, tf in zip(tokens, step_ms, tflops):
+        log(f"phase6b step tokens={t} step_ms={ms:.2f} TFLOP/s={tf:.1f} "
+            f"MFU={100 * tf / H100_PEAK_TFLOPS:.2f}%")
+    mean_tf = sum(flops) / (sum(step_ms) * 1e-3) / 1e12
+    log(f"phase6b mean: step_ms={statistics.mean(step_ms):.2f} "
+        f"median={statistics.median(step_ms):.2f} tokens={statistics.mean(tokens):.0f} "
+        f"TFLOP/s={mean_tf:.1f} MFU={100 * mean_tf / H100_PEAK_TFLOPS:.2f}% "
+        f"(hstu_flops_exact against {H100_PEAK_TFLOPS:.0f})")
+    log(f"phase6b peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_call(lambda: trainer.train_step(state, batches[1]),
+                 "phase6b profile of one train step", top=20, groups={
+                     "attention K1-K3": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+                     "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+                     "gather/scatter": ("index", "scatter", "gather"),
+                     "optimizer": ("multi_tensor", "adam"),
+                 })
+    del state, trainer, model
+    torch.cuda.empty_cache()
+    main_shape["launches"] = launches
+    return main_shape
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -347,34 +785,57 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} numpy {np.__version__} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    info = cuda_build.build(["paged_hstu_attention"])
+    info = cuda_build.build(["paged_hstu_attention", "hstu_attention"])
     for name, i in info.items():
         log(f"phase1 build {name}: {i['seconds']:.1f} s")
         for line in i["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    k = phase_kernel(attn)
-    runner, main_res = phase_main(attn)
+    res = {"paged": phase_kernel(attn)}
+    runner, res["serve"] = phase_main(attn)
     phase_serve(runner, attn)
+    del runner
+    torch.cuda.empty_cache()
+    res["jagged"] = phase_jagged()
+    res["train"] = phase_train()
 
-    warm = k["serve_warm"]
+    warm = res["paged"]["serve_warm"]
     kernels = [{
         "name": "paged_hstu_delta_attention",
         "route": "cuda",
         "source": "recsys_examples_torch/csrc/paged_hstu_attention.cu",
         "replaces": "recsys_examples_tpu/ops/pallas/paged_hstu_attention.py:270",
-        "launches": main_res["launches"],
-        "max_abs_err": max(r["err"] for r in k.values()),
+        "launches": res["serve"]["launches"],
+        "max_abs_err": max(r["err"] for r in res["paged"].values()),
         "ms": warm["kernel_ms"],
         "plain_ms": warm["plain_ms"],
         "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"],
         "library_ms": None,
     }]
+    train = res["train"]
+    for i, (kk, name, tags, line) in enumerate((
+            ("fwd", "hstu_attn_fwd", ("out",), 1092),
+            ("dq", "hstu_attn_bwd_dq", ("dq",), 1202),
+            ("dkv", "hstu_attn_bwd_dkv", ("dk", "dv"), 1202))):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "recsys_examples_torch/csrc/hstu_attention.cu",
+            "replaces": f"recsys_examples_tpu/ops/pallas/hstu_attention.py:{line}",
+            "launches": train["launches"][i],
+            "max_abs_err": max([train["errs"][t] for t in tags]
+                               + [c["errs"][t] for c in res["jagged"].values() for t in tags]),
+            "ms": train["ms"][kk],
+            "plain_ms": train["plain_ms"][kk],
+            "bound_ms": train["bound"][kk][0],
+            "bound_by": train["bound"][kk][1],
+            "library_ms": None,
+        })
     log(f"phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -2,9 +2,10 @@
 
 All inputs are numpy arrays (or anything `np.asarray` takes), so nothing
 here needs JAX:
-  - `dense_state_dict`: a flax `InferenceDenseModule` param tree (nested
-    dicts, unboxed) -> the port's `InferenceDenseModule.state_dict()`. flax
-    `Dense` kernels are [in, out] and become `nn.Linear.weight` [out, in].
+  - `dense_state_dict` / `flax_params`: a flax param tree (an
+    `InferenceDenseModule`'s or a whole `RankingGR`'s) -> the port's
+    `state_dict()`, and back to numpy. flax `Dense` kernels are [in, out]
+    and become `nn.Linear.weight` [out, in].
   - `table_state`: an `InferenceTableState`'s keys/values -> the port's.
   - `kvcache_state` / `kvcache_to_numpy`: a `KVCacheState` as a mapping of
     field name -> array, both ways.
@@ -42,32 +43,52 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _index(name: str) -> int:
-    prefix, _, i = name.rpartition("_")
-    if prefix != "layer":
-        raise KeyError(f"unexpected module name {name}")
-    return int(i)
+def _torch_name(part: str) -> str:
+    prefix, _, i = part.rpartition("_")
+    return f"layers.{i}" if prefix == "layer" and i.isdigit() else part
 
 
 def dense_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax {hstu_block/layer_i/..., head/layer_i/...} -> state_dict."""
+    """A flax param tree (nested dicts, unboxed) -> the port's state_dict.
+
+    Module names map one to one, except that flax's `layer_i` is the port's
+    `layers.i` and a `Dense` kernel [in, out] becomes `nn.Linear.weight`
+    [out, in]."""
     sd = {}
-    for name, layer in params["hstu_block"].items():
-        pre = f"hstu_block.layers.{_index(name)}."
-        for ln in ("input_layernorm", "output_layernorm"):
-            for p in ("scale", "bias"):
-                if p in layer.get(ln, {}):
-                    sd[f"{pre}{ln}.{p}"] = layer[ln][p]
-        sd[pre + "uvqk_kernel"] = layer["uvqk_kernel"]
-        if "uvqk_bias" in layer:
-            sd[pre + "uvqk_bias"] = layer["uvqk_bias"]
-        sd[pre + "linear_proj.weight"] = np.asarray(layer["linear_proj"]["kernel"]).T
-    for name, lin in params["head"].items():
-        pre = f"head.layers.{_index(name)}."
-        sd[pre + "weight"] = np.asarray(lin["kernel"]).T
-        if "bias" in lin:
-            sd[pre + "bias"] = lin["bias"]
+
+    def walk(tree, path):
+        for name, sub in tree.items():
+            if isinstance(sub, Mapping):
+                walk(sub, path + [_torch_name(name)])
+            elif name == "kernel" and np.ndim(sub) == 2:
+                sd[".".join(path + ["weight"])] = np.asarray(sub).T
+            else:
+                sd[".".join(path + [name])] = sub
+
+    walk(params, [])
     return {k: to_torch(v) for k, v in sd.items()}
+
+
+def flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of `dense_state_dict`: a state_dict -> the flax param
+    tree, as numpy arrays (for comparing params after a train step)."""
+    tree: Dict = {}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        names = []
+        for i, part in enumerate(parts):
+            if i > 0 and parts[i - 1] == "layers":
+                names[-1] = f"layer_{part}"
+            else:
+                names.append(part)
+        value = to_numpy(t)
+        if names[-1] == "weight":
+            names[-1], value = "kernel", value.T
+        node = tree
+        for n in names[:-1]:
+            node = node.setdefault(n, {})
+        node[names[-1]] = value
+    return tree
 
 
 def table_state(keys, values, device="cpu") -> InferenceTableState:

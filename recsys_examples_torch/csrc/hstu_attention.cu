@@ -1,0 +1,542 @@
+// Jagged SiLU (HSTU) attention for training, for Hopper (sm_90a): the
+// forward (K1), dq (K2) and dk/dv (K3).
+//
+// Replaces the TPU kernels of recsys_examples_tpu/ops/pallas/hstu_attention.py:
+// K1 `_fwd_kernel` (launched by `_hstu_fwd_impl`), K2 `_bwd_dq_kernel` and
+// K3 `_bwd_dkv_kernel` (both launched by `_hstu_bwd_impl`). For each
+// sequence b of the packed [T, H, D] tensors (rows seq_offsets[b] ..
+// seq_offsets[b + 1]) and each head:
+//   S = alpha q k^T (fp32),  P = silu(S) / scaling * mask
+//   out = P(bf16) v                                   (K1)
+//   dP = dO v^T,  dS = dP * dsilu(S) * mask / scaling
+//   dq = alpha dS(bf16) k                             (K2)
+//   dv = P(bf16)^T dO,  dk = alpha dS(bf16)^T q       (K3)
+// with fp32 accumulation and the mask of `_compute_mask`: causal or not,
+// contextual rows collapsed to position 0 and attending the history, the
+// target-group purge, the max_attn_len window with its min-full tail, and
+// the in-sequence guards. Rows that no sequence owns are never written: the
+// caller zero-fills the outputs.
+//
+// What bounds it on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s): operations.
+// At a full-width training batch (32 sequences of 3 + 2 x Zipf(1.2) history
+// tokens: 22,458 tokens, 4 heads of 256, chip_smoke.py's phase 6) the
+// forward's valid (row, col) pairs need 122.8 GFLOP per layer (0.124 ms)
+// against 184 MB of q, k, v and out (0.055 ms). K2 runs three such products
+// (S, dP, dq: 0.186 ms), K3 four (S, dP, dk, dv: 0.248 ms). chip_smoke.py
+// computes the bounds of the shapes it runs from their masks.
+//
+// Design (simple and right first; speed is later work). Packed rows are
+// read in place through seq_offsets: no aligned layout, no head padding, no
+// tile worklist. 8 warps per CTA on mma.sync m16n8k16 tensor-core tiles.
+// The CTA's own 64-row tile stays in shared memory while 32-row tiles of
+// the other side stream through a two-stage cp.async ring, so the next
+// tile's loads overlap this tile's math. Each warp computes a 16 x 16 block
+// of the 64 x 32 score tile, applies mask and silu in registers and writes
+// its bf16 product tile to shared memory; then each warp accumulates 16 rows
+// x DH/2 columns of the output product.
+//   K1, K2: one CTA per (64 query rows, head, sequence), walking the key
+//   tiles the mask can reach (`_kv_extent`: causal rows stop at their
+//   diagonal, a tile that holds contextual rows goes to the end). The last
+//   tiles of a sequence, which walk furthest, are launched first.
+//   K3: one CTA per (64 key rows, head, sequence), walking the query tiles
+//   that reach it: the causal range from the key tile on, plus the tiles of
+//   the contextual rows at the start of the sequence. It owns its dk and dv
+//   rows, so both backward kernels are deterministic (no atomics).
+// Not done yet: wgmma/TMA, warp specialisation, skipping the mask on
+// interior tiles, and skipping tiles the max_attn_len window cannot reach.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "sm90_mma.cuh"
+
+namespace {
+
+using sm90::bf16;
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::ld32;
+using sm90::ldmatrix_x4;
+using sm90::ldmatrix_x4_trans;
+using sm90::mma;
+using sm90::pack_bf16;
+
+constexpr int NT = 256;   // 8 warps: row block warp % 4, half warp / 4
+constexpr int BT = 64;    // rows of the CTA's own tile (4 row blocks of 16)
+constexpr int BS = 32;    // rows of a streamed tile
+
+struct Params {
+  const int* seq_offsets;       // [B + 1]
+  const int* num_contextuals;   // [B] or null
+  const int* num_targets;       // [B] or null
+  int H;
+  float alpha, inv_scaling;
+  int causal, group, max_attn_len, min_full;
+};
+
+// One sequence: its first packed row, length, contextual and target counts.
+struct Seq {
+  int off, n, c, t;
+  bool has_ctx, has_tgt;
+  __device__ Seq(const Params& p, int b) {
+    off = p.seq_offsets[b];
+    n = p.seq_offsets[b + 1] - off;
+    has_ctx = p.num_contextuals != nullptr;
+    has_tgt = p.num_targets != nullptr;
+    c = has_ctx ? p.num_contextuals[b] : 0;
+    t = has_tgt ? p.num_targets[b] : 0;
+  }
+  // `_compute_mask` for query row `row` and key column `col` (positions in
+  // the sequence)
+  __device__ bool valid(const Params& p, int row, int col) const {
+    if (row >= n || col >= n) return false;
+    const int row_ids = max(row - c + 1, 0), col_ids = max(col - c + 1, 0);
+    int dist = row_ids - col_ids;
+    if (!p.causal) dist = abs(dist);
+    bool ok = row == col || dist > 0;
+    const int max_id = n - c + 1;
+    int hist_max = max_id;
+    if (has_tgt) {
+      // floor division of values >= -1
+      const int xr = max(row_ids - max_id + t, -1), xc = max(col_ids - max_id + t, -1);
+      const int gr = xr < 0 ? -1 : xr / p.group, gc = xc < 0 ? -1 : xc / p.group;
+      ok = ok && (gr == gc || gr < 0 || gc < 0);
+      hist_max = max_id - t;
+    }
+    if (p.max_attn_len > 0) {
+      bool win = dist <= p.max_attn_len;
+      if (p.min_full > 0) win = win || row_ids >= hist_max - p.min_full;
+      ok = ok && win;
+    }
+    if (has_ctx) ok = ok || (row_ids == 0 && col_ids < hist_max);
+    return ok;
+  }
+  // `_kv_extent`: how far into the keys the query tile [q0, q0 + BT) looks
+  __device__ int kv_end(const Params& p, int q0) const {
+    if (!p.causal || (has_ctx && q0 < c)) return n;
+    return min(n, q0 + BT);
+  }
+};
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + __expf(-x)); }
+
+template <int DH>
+struct Layout {
+  static constexpr int KS = DH + 8;    // row stride of a [rows][DH] tile: +16 B
+  static constexpr int PS = BS + 8;    // row stride of a [BT][BS] product tile
+  static constexpr int VPR = DH / 8;   // 16-byte vectors per row
+  static constexpr int OC = DH / 2;    // accumulator columns per warp
+  static constexpr int TILE = BT * KS, STREAM = BS * KS, PTILE = BT * PS;
+};
+
+// Copy rows [row0, row0 + ROWS) of one head of a sequence (`src` = its row
+// 0, `ld` elements between rows) into a [ROWS][KS] shared tile; rows at or
+// past n are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t ld,
+                                          int row0, int n) {
+  using L = Layout<DH>;
+  for (int e = threadIdx.x; e < ROWS * L::VPR; e += NT) {
+    const int r = e / L::VPR, vv = e % L::VPR;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * L::KS + vv * 8,
+               ok ? src + (size_t)(row0 + r) * ld + vv * 8 : src, ok);
+  }
+}
+
+// acc = a[rb*16 .. +16] . b[hf*16 + j*8 .. +8]^T over DH, for j = 0, 1:
+// the warp's 16 x 16 block of the [BT][BS] score tile a . b^T. Even and odd
+// k-steps accumulate apart, so two mma chains are in flight.
+template <int DH>
+__device__ __forceinline__ void score_block(float (&acc)[2][4], const bf16* a,
+                                            const bf16* b, int rb, int hf, int lane) {
+  constexpr int KS = Layout<DH>::KS;
+  const int g = lane / 4, t = lane % 4;
+  float s[2][2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const bf16* ar = a + (rb * 16 + g) * KS + kk * 16 + 2 * t;
+    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * KS), ld32(ar + 8),
+                            ld32(ar + 8 * KS + 8)};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bf16* br = b + (hf * 16 + j * 8 + g) * KS + kk * 16 + 2 * t;
+      mma(s[kk & 1][j], af, ld32(br), ld32(br + 8));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = s[0][j][e] + s[1][j][e];
+}
+
+// Row (in the tile) and column (in the streamed tile) of element e of
+// n-tile j of a score block.
+__device__ __forceinline__ int blk_row(int rb, int lane, int e) {
+  return rb * 16 + lane / 4 + (e >> 1) * 8;
+}
+__device__ __forceinline__ int blk_col(int hf, int lane, int j, int e) {
+  return hf * 16 + j * 8 + 2 * (lane % 4) + (e & 1);
+}
+
+// Store a score block's four values of n-tile j, rounded to bf16, into the
+// [BT][PS] product tile.
+template <int DH>
+__device__ __forceinline__ void put_block(bf16* tile, int rb, int hf, int lane, int j,
+                                          const float v[4]) {
+  constexpr int PS = Layout<DH>::PS;
+  bf16* r = tile + (rb * 16 + lane / 4) * PS + hf * 16 + j * 8 + 2 * (lane % 4);
+  *reinterpret_cast<uint32_t*>(r) = pack_bf16(v[0], v[1]);
+  *reinterpret_cast<uint32_t*>(r + 8 * PS) = pack_bf16(v[2], v[3]);
+}
+
+// acc[16 rows x DH/2 cols] += p[rb*16 .. +16][0 .. BS] . x[0 .. BS][hf*DH/2 ..]:
+// p through ldmatrix, x (row-major [BS][KS]) through ldmatrix.trans, two
+// n-tiles at a time.
+template <int DH>
+__device__ __forceinline__ void accumulate(float (&acc)[DH / 16][4], const bf16* p,
+                                           const bf16* x, int rb, int hf, int lane) {
+  using L = Layout<DH>;
+  const int mi = lane / 8, rr = lane % 8;
+#pragma unroll
+  for (int kk = 0; kk < BS / 16; ++kk) {
+    uint32_t pa[4];
+    ldmatrix_x4(pa, p + (rb * 16 + rr + (mi & 1) * 8) * L::PS + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+    for (int np = 0; np < L::OC / 16; ++np) {
+      uint32_t bx[4];
+      ldmatrix_x4_trans(bx, x + (kk * 16 + rr + (mi & 1) * 8) * L::KS + hf * L::OC +
+                                np * 16 + (mi >> 1) * 8);
+      mma(acc[2 * np], pa, bx[0], bx[1]);
+      mma(acc[2 * np + 1], pa, bx[2], bx[3]);
+    }
+  }
+}
+
+// Write the warp's accumulator rows row0 + rb*16 + {g, g+8} (those < n) to
+// `dst` (row 0 of the sequence at this head).
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* dst, size_t ld,
+                                           const float (&acc)[DH / 16][4], int row0,
+                                           int n, int rb, int hf, int lane) {
+  const int r0 = row0 + rb * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j) {
+    const int col = hf * Layout<DH>::OC + j * 8 + 2 * (lane % 4);
+    if (r0 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r0 * ld + col) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (r0 + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(r0 + 8) * ld + col) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// ------------------------------------------------------------ K1: forward
+template <int DH>
+constexpr size_t fwd_smem() {
+  using L = Layout<DH>;
+  return sizeof(bf16) * (L::TILE + 4 * L::STREAM + L::PTILE);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 2)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, bf16* __restrict__ out, Params p) {
+  using L = Layout<DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
+  bf16* sK = sQ + L::TILE;                         // [2][BS][KS]
+  bf16* sV = sK + 2 * L::STREAM;                   // [2][BS][KS]
+  bf16* sP = sV + 2 * L::STREAM;                   // [BT][PS]
+
+  const Seq s(p, blockIdx.z);
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * BT;
+  if (m0 >= s.n) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rb = warp % 4, hf = warp / 4;
+  const size_t ld = (size_t)p.H * DH;
+  const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
+  const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
+
+  float o[DH / 16][4] = {};
+  load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);   // joins key tile 0's group
+  load_tile<DH, BS>(sK, k + base, ld, 0, s.n);
+  load_tile<DH, BS>(sV, v + base, ld, 0, s.n);
+  cp_async_commit();
+  for (int ci = 0; ci < n_tiles; ++ci) {
+    const int buf = ci & 1;
+    if (ci + 1 < n_tiles) {   // that stage was freed by the last sync
+      load_tile<DH, BS>(sK + (buf ^ 1) * L::STREAM, k + base, ld, (ci + 1) * BS, s.n);
+      load_tile<DH, BS>(sV + (buf ^ 1) * L::STREAM, v + base, ld, (ci + 1) * BS, s.n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* k_s = sK + buf * L::STREAM;
+    const bf16* v_s = sV + buf * L::STREAM;
+
+    float sc[2][4];
+    score_block<DH>(sc, sQ, k_s, rb, hf, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[j][e] * p.alpha;
+        pv[e] = s.valid(p, m0 + blk_row(rb, lane, e), ci * BS + blk_col(hf, lane, j, e))
+                    ? x * sigmoid(x) * p.inv_scaling : 0.f;
+      }
+      put_block<DH>(sP, rb, hf, lane, j, pv);
+    }
+    __syncthreads();
+    accumulate<DH>(o, sP, v_s, rb, hf, lane);
+    __syncthreads();   // this stage and P are free again
+  }
+  store_rows<DH>(out + base, ld, o, m0, s.n, rb, hf, lane);
+}
+
+// ------------------------------------------------------------ K2: dq
+template <int DH>
+constexpr size_t dq_smem() {
+  using L = Layout<DH>;
+  return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + L::PTILE);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 1)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+          bf16* __restrict__ dq, Params p) {
+  using L = Layout<DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
+  bf16* sO = sQ + L::TILE;                         // [BT][KS] dO
+  bf16* sK = sO + L::TILE;                         // [2][BS][KS]
+  bf16* sV = sK + 2 * L::STREAM;                   // [2][BS][KS]
+  bf16* sS = sV + 2 * L::STREAM;                   // [BT][PS] dS
+
+  const Seq s(p, blockIdx.z);
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * BT;
+  if (m0 >= s.n) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rb = warp % 4, hf = warp / 4;
+  const size_t ld = (size_t)p.H * DH;
+  const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
+  const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
+  const float ds_scale = p.inv_scaling * p.alpha;
+
+  float acc[DH / 16][4] = {};
+  load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);
+  load_tile<DH, BT>(sO, dout + base, ld, m0, s.n);
+  load_tile<DH, BS>(sK, k + base, ld, 0, s.n);
+  load_tile<DH, BS>(sV, v + base, ld, 0, s.n);
+  cp_async_commit();
+  for (int ci = 0; ci < n_tiles; ++ci) {
+    const int buf = ci & 1;
+    if (ci + 1 < n_tiles) {
+      load_tile<DH, BS>(sK + (buf ^ 1) * L::STREAM, k + base, ld, (ci + 1) * BS, s.n);
+      load_tile<DH, BS>(sV + (buf ^ 1) * L::STREAM, v + base, ld, (ci + 1) * BS, s.n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* k_s = sK + buf * L::STREAM;
+    const bf16* v_s = sV + buf * L::STREAM;
+
+    float sc[2][4], dp[2][4];
+    score_block<DH>(sc, sQ, k_s, rb, hf, lane);
+    score_block<DH>(dp, sO, v_s, rb, hf, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[j][e] * p.alpha, sg = sigmoid(x);
+        ds[e] = s.valid(p, m0 + blk_row(rb, lane, e), ci * BS + blk_col(hf, lane, j, e))
+                    ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * ds_scale : 0.f;
+      }
+      put_block<DH>(sS, rb, hf, lane, j, ds);
+    }
+    __syncthreads();
+    accumulate<DH>(acc, sS, k_s, rb, hf, lane);
+    __syncthreads();
+  }
+  store_rows<DH>(dq + base, ld, acc, m0, s.n, rb, hf, lane);
+}
+
+// ------------------------------------------------------------ K3: dk, dv
+template <int DH>
+constexpr size_t dkv_smem() {
+  using L = Layout<DH>;
+  return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + 2 * L::PTILE);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 1)
+dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           bf16* __restrict__ dk, bf16* __restrict__ dv, Params p) {
+  using L = Layout<DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
+  bf16* sV = sK + L::TILE;                         // [BT][KS]
+  bf16* sQ = sV + L::TILE;                         // [2][BS][KS]
+  bf16* sO = sQ + 2 * L::STREAM;                   // [2][BS][KS] dO
+  bf16* sP = sO + 2 * L::STREAM;                   // [BT][PS] P^T
+  bf16* sS = sP + L::PTILE;                        // [BT][PS] dS^T
+
+  const Seq s(p, blockIdx.z);
+  const int n0 = blockIdx.x * BT;   // causal: the first key tiles walk furthest
+  if (n0 >= s.n) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rb = warp % 4, hf = warp / 4;
+  const size_t ld = (size_t)p.H * DH;
+  const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
+  const float ds_scale = p.inv_scaling * p.alpha;
+
+  // query tiles that reach keys [n0, n0 + BT): when causal, the tiles of the
+  // contextual rows [0, c), then the tiles from the key tile on; else all
+  const int n_q = (s.n + BS - 1) / BS;
+  int n_ctx = 0, first = 0;
+  if (p.causal) {
+    n_ctx = s.has_ctx ? (min(max(s.c, 0), s.n) + BS - 1) / BS : 0;
+    first = max(n0 / BS, n_ctx);
+  }
+  const int n_tiles = n_ctx + n_q - first;
+  auto q_row0 = [&](int ci) { return (ci < n_ctx ? ci : first + ci - n_ctx) * BS; };
+
+  float dka[DH / 16][4] = {}, dva[DH / 16][4] = {};
+  load_tile<DH, BT>(sK, k + base, ld, n0, s.n);
+  load_tile<DH, BT>(sV, v + base, ld, n0, s.n);
+  load_tile<DH, BS>(sQ, q + base, ld, q_row0(0), s.n);
+  load_tile<DH, BS>(sO, dout + base, ld, q_row0(0), s.n);
+  cp_async_commit();
+  for (int ci = 0; ci < n_tiles; ++ci) {
+    const int buf = ci & 1;
+    if (ci + 1 < n_tiles) {
+      const int r1 = q_row0(ci + 1);
+      load_tile<DH, BS>(sQ + (buf ^ 1) * L::STREAM, q + base, ld, r1, s.n);
+      load_tile<DH, BS>(sO + (buf ^ 1) * L::STREAM, dout + base, ld, r1, s.n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* q_s = sQ + buf * L::STREAM;
+    const bf16* o_s = sO + buf * L::STREAM;
+    const int q0 = q_row0(ci);
+
+    // transposed scores: rows are keys, columns queries
+    float st[2][4], dpt[2][4];
+    score_block<DH>(st, sK, q_s, rb, hf, lane);
+    score_block<DH>(dpt, sV, o_s, rb, hf, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float pv[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = st[j][e] * p.alpha, sg = sigmoid(x);
+        const bool ok =
+            s.valid(p, q0 + blk_col(hf, lane, j, e), n0 + blk_row(rb, lane, e));
+        pv[e] = ok ? x * sg * p.inv_scaling : 0.f;
+        ds[e] = ok ? dpt[j][e] * sg * (1.f + x * (1.f - sg)) * ds_scale : 0.f;
+      }
+      put_block<DH>(sP, rb, hf, lane, j, pv);
+      put_block<DH>(sS, rb, hf, lane, j, ds);
+    }
+    __syncthreads();
+    accumulate<DH>(dva, sP, o_s, rb, hf, lane);   // dv += P^T dO
+    accumulate<DH>(dka, sS, q_s, rb, hf, lane);   // dk += dS^T q
+    __syncthreads();
+  }
+  store_rows<DH>(dk + base, ld, dka, n0, s.n, rb, hf, lane);
+  store_rows<DH>(dv + base, ld, dva, n0, s.n, rb, hf, lane);
+}
+
+// ------------------------------------------------------------ launch
+template <class T>
+struct same { using type = T; };
+
+template <typename... A>
+int launch(void (*kern)(A...), size_t smem, dim3 grid, cudaStream_t st,
+           typename same<A>::type... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NT, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(const int* seq_offsets, const int* num_contextuals,
+                   const int* num_targets, int H, float alpha, float inv_scaling,
+                   int causal, int group, int max_attn_len, int min_full) {
+  return Params{seq_offsets, num_contextuals, num_targets, H, alpha, inv_scaling,
+                causal, group, max_attn_len, min_full};
+}
+
+#define HSTU_DISPATCH_DH(dh, CALL)                  \
+  switch (dh) {                                     \
+    case 32: { constexpr int DH = 32; return CALL; }   \
+    case 64: { constexpr int DH = 64; return CALL; }   \
+    case 128: { constexpr int DH = 128; return CALL; } \
+    case 256: { constexpr int DH = 256; return CALL; } \
+    default: return -1;                             \
+  }
+
+}  // namespace
+
+// All three take bf16 [T, H, dh] tensors (dh 32, 64, 128 or 256), int32
+// seq_offsets [B + 1] and optional int32 num_contextuals / num_targets [B]
+// (null when absent). Each returns the CUDA error code of its launch (0 on
+// success) or -1 for an unsupported head dim or group size.
+#define HSTU_COMMON_ARGS                                                         \
+  const int *seq_offsets, const int *num_contextuals, const int *num_targets,    \
+      int B, int H, int dh, int max_seqlen, float alpha, float inv_scaling,      \
+      int causal, int target_group_size, int max_attn_len,                       \
+      int min_full_attn_seq_len, void *stream
+
+#define HSTU_PROLOGUE                                                            \
+  if (target_group_size < 1) return -1;                                          \
+  if (B == 0 || H == 0 || max_seqlen == 0) return 0;                             \
+  const Params p = make_params(seq_offsets, num_contextuals, num_targets, H,     \
+                               alpha, inv_scaling, causal, target_group_size,    \
+                               max_attn_len, min_full_attn_seq_len);             \
+  const dim3 grid((max_seqlen + BT - 1) / BT, H, B);                             \
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+extern "C" int hstu_attn_fwd_launch(const void* q, const void* k, const void* v,
+                                    void* out, HSTU_COMMON_ARGS) {
+  HSTU_PROLOGUE
+  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
+             *V = static_cast<const bf16*>(v);
+  bf16* O = static_cast<bf16*>(out);
+  HSTU_DISPATCH_DH(dh, launch(fwd_kernel<DH>, fwd_smem<DH>(), grid, st, Q, K, V, O, p))
+}
+
+extern "C" int hstu_attn_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                       const void* dout, void* dq, HSTU_COMMON_ARGS) {
+  HSTU_PROLOGUE
+  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
+             *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
+  bf16* dQ = static_cast<bf16*>(dq);
+  HSTU_DISPATCH_DH(dh, launch(dq_kernel<DH>, dq_smem<DH>(), grid, st, Q, K, V, dO, dQ, p))
+}
+
+extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                        const void* dout, void* dk, void* dv,
+                                        HSTU_COMMON_ARGS) {
+  HSTU_PROLOGUE
+  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
+             *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
+  bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
+  HSTU_DISPATCH_DH(dh, launch(dkv_kernel<DH>, dkv_smem<DH>(), grid, st, Q, K, V, dO,
+                              dK, dV, p))
+}

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from recsys_examples_torch.modules.config import HSTUConfig
+from recsys_examples_torch.modules.hstu_layer import LayerNorm
 from recsys_examples_torch.ops.paged_hstu_attention import (
     paged_hstu_delta_attention,
 )
@@ -52,35 +53,6 @@ def delta_attention(
     p = p * valid[:, None].to(p.dtype)
     out = torch.einsum("bhsn,bnhd->bshd", p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
-
-
-class LayerNorm(nn.Module):
-    """flax `nn.LayerNorm`: statistics in at least fp32 with the fast
-    variance E[x^2] - E[x]^2 (clamped at 0), output in `dtype`. With
-    `learnable=False` it has no params."""
-
-    def __init__(self, dim: int, eps: float, learnable: bool, dtype, device=None):
-        super().__init__()
-        self.eps = eps
-        self.dtype = dtype
-        if learnable:
-            self.scale = nn.Parameter(torch.ones(dim, device=device))
-            self.bias = nn.Parameter(torch.zeros(dim, device=device))
-        else:
-            self.scale = self.bias = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        mean2 = (x32 * x32).mean(-1, keepdim=True)
-        var = (mean2 - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps)
-        if self.scale is not None:
-            mul = mul * self.scale
-        y = (x32 - mean) * mul
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(self.dtype)
 
 
 class PagedHSTUInferLayer(nn.Module):

@@ -1,21 +1,25 @@
 """Model configuration (counterpart of recsys_examples_tpu/modules/config.py).
 
-Only the fields the KV-cached inference path reads are carried over; the
-dtype is a torch dtype. The kernel choice needs no field: a kernel wrapper
-launches its CUDA kernel for CUDA tensors and runs its plain PyTorch version
-for CPU tensors (`KernelBackend` names the two).
+The dtype is a torch dtype. The kernel choice needs no field: a kernel
+wrapper launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
+version for CPU tensors. Fields of unported features (the relative bias's
+buckets, sequence parallelism, eval metrics, table sharding) and the
+TPU-only ones (the Pallas block sizes, the block-aligned layout) are not
+carried over.
 """
 from __future__ import annotations
 
 import dataclasses
-import enum
+from typing import Optional, Tuple
 
 import torch
 
 
-class KernelBackend(enum.Enum):
-    CUDA = "cuda"     # hand-written Hopper kernel (production path)
-    TORCH = "torch"   # plain PyTorch version (CPU path and reference)
+@dataclasses.dataclass(frozen=True)
+class PositionEncodingConfig:
+    num_position_buckets: int = 8192
+    num_time_buckets: int = 2048
+    use_time_encoding: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,3 +35,33 @@ class HSTUConfig:
     add_uvqk_bias: bool = True
     scaling_seqlen: int = -1
     dtype: torch.dtype = torch.bfloat16
+    # training
+    hidden_dropout: float = 0.0
+    is_causal: bool = True
+    target_group_size: int = 1
+    max_attn_len: int = 0
+    use_relative_attention_bias: bool = False   # K4: not ported yet
+    position_encoding_config: Optional[PositionEncodingConfig] = None
+    tensor_model_parallel_size: int = 1         # > 1: not ported yet
+    item_embedding_dim: int = 0        # > 0 enables the item MLP
+    contextual_embedding_dim: int = 0  # > 0 enables the contextual MLP
+    disable_contextual_mask: bool = False
+    recompute_layer: bool = False      # torch.utils.checkpoint each layer
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingConfig:
+    """A static (data-parallel) embedding table."""
+    feature_names: Tuple[str, ...]
+    table_name: str
+    vocab_size: int
+    dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RankingConfig:
+    embedding_configs: Tuple[EmbeddingConfig, ...]
+    prediction_head_arch: Tuple[int, ...] = (512, 10)
+    prediction_head_act_type: str = "relu"
+    prediction_head_bias: bool = True
+    num_tasks: int = 1

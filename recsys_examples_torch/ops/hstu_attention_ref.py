@@ -1,0 +1,194 @@
+"""Plain (dense-padded) HSTU attention with the full mask zoo, forward and
+backward (counterpart of recsys_examples_tpu/ops/hstu_attention_ref.py).
+
+These are the plain versions of the CUDA kernels K1 (forward), K2 (dq) and
+K3 (dk/dv) in `csrc/hstu_attention.cu`: the CPU path of
+`ops.hstu_attention.hstu_attn_varlen`, and what `chip_smoke.py` holds the
+kernels against on the card.
+
+HSTU attention is SiLU attention, not softmax:
+
+    S = alpha q k^T,  P = silu(S) / scaling_seqlen * mask,  out = P v
+
+Sums are fp32; the bf16 rounding points are those of the kernels: P to v's
+dtype before P v; in the backward dO to v's dtype, dS to k's dtype for dq
+and to q's dtype for dk, P to dO's dtype for dv.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from recsys_examples_torch.ops.jagged import (
+    jagged_to_padded_dense,
+    padded_dense_to_jagged,
+)
+
+
+def get_valid_attn_mask(
+    causal: bool,
+    N: int,
+    seq_lengths: torch.Tensor,
+    num_targets: Optional[torch.Tensor] = None,
+    max_attn_len: int = 0,
+    num_contextuals: Optional[Union[int, torch.Tensor]] = None,
+    min_full_attn_seq_len: int = 0,
+    target_group_size: int = 1,
+) -> torch.Tensor:
+    """[B, N, N] bool mask (row = query position, col = key position)."""
+    B = seq_lengths.shape[0]
+    dev = seq_lengths.device
+    ids = torch.arange(N, device=dev)[None, :]
+    max_ids = seq_lengths.to(torch.int64).reshape(B, 1, 1)
+    has_context = num_contextuals is not None and not (
+        isinstance(num_contextuals, int) and num_contextuals == 0
+    )
+    if has_context:
+        if isinstance(num_contextuals, int):
+            ctx = torch.full((B, 1), num_contextuals, dtype=torch.int64, device=dev)
+        else:
+            ctx = num_contextuals.to(torch.int64).reshape(B, 1)
+        # contextual tokens collapse onto position 0; history starts at 1
+        ids = (ids - ctx + 1).clamp_min(0)
+        max_ids = max_ids - ctx.reshape(B, 1, 1) + 1
+    else:
+        ids = ids.expand(B, N)
+    row_ids = ids[:, :, None]
+    col_ids = ids[:, None, :]
+    row_col_dist = row_ids - col_ids
+    if not causal:
+        row_col_dist = row_col_dist.abs()
+    valid = torch.eye(N, dtype=torch.bool, device=dev)[None] | (row_col_dist > 0)
+
+    if num_targets is not None:
+        nt = num_targets.to(torch.int64).reshape(B, 1, 1)
+        # group index of each target token (floor div; -1 clamps history)
+        tg_row = torch.div((row_ids - max_ids + nt).clamp_min(-1), target_group_size,
+                           rounding_mode="floor")
+        tg_col = torch.div((col_ids - max_ids + nt).clamp_min(-1), target_group_size,
+                           rounding_mode="floor")
+        valid = valid & ((tg_row == tg_col) | (tg_row < 0) | (tg_col < 0))
+        max_ids = max_ids - nt
+
+    if max_attn_len > 0:
+        window = row_col_dist <= max_attn_len
+        if min_full_attn_seq_len > 0:
+            window = window | (row_ids >= max_ids - min_full_attn_seq_len)
+        valid = valid & window
+
+    if has_context:
+        # contextual rows (position 0) attend to the full valid sequence
+        valid = valid | ((row_ids == 0) & (col_ids < max_ids))
+    return valid
+
+
+def _padded(x: torch.Tensor, seq_offsets: torch.Tensor, N: int) -> torch.Tensor:
+    """[T, H, d] jagged -> [B, H, N, d] padded dense."""
+    T, H = x.shape[:2]
+    d = jagged_to_padded_dense(x.reshape(T, -1), seq_offsets, N)
+    return d.reshape(d.shape[0], N, H, -1).transpose(1, 2)
+
+
+def _jagged(x: torch.Tensor, seq_offsets: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, H, N, d] padded dense -> [T, H, d] jagged."""
+    B, H, N, d = x.shape
+    return padded_dense_to_jagged(
+        x.transpose(1, 2).reshape(B, N, H * d), seq_offsets, T
+    ).reshape(T, H, d)
+
+
+def _scores_and_mask(q, k, seq_offsets, max_seq_len, alpha, causal, num_targets,
+                     num_contextuals, max_attn_len, min_full_attn_seq_len,
+                     target_group_size):
+    """Padded fp32 scores alpha q k^T [B, H, N, N] and the [B, 1, N, N] mask."""
+    N = max_seq_len
+    pq = _padded(q, seq_offsets, N).float()
+    pk = _padded(k, seq_offsets, N).float()
+    s = torch.einsum("bhxa,bhya->bhxy", pq, pk) * alpha
+    mask = get_valid_attn_mask(
+        causal=causal, N=N, seq_lengths=seq_offsets[1:] - seq_offsets[:-1],
+        num_targets=num_targets, max_attn_len=max_attn_len,
+        num_contextuals=num_contextuals,
+        min_full_attn_seq_len=min_full_attn_seq_len,
+        target_group_size=target_group_size,
+    )
+    return s, mask[:, None]
+
+
+def hstu_mha_reference(
+    max_seq_len: int,
+    alpha: float,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seq_offsets: torch.Tensor,
+    causal: bool = True,
+    num_targets: Optional[torch.Tensor] = None,
+    num_contextuals: Optional[Union[int, torch.Tensor]] = None,
+    max_attn_len: int = 0,
+    target_group_size: int = 1,
+    scaling_seqlen: int = -1,
+    min_full_attn_seq_len: int = 0,
+) -> torch.Tensor:
+    """Jagged HSTU multi-head attention, dense-padded (plain K1).
+
+    q, k: [T, H, D]; v: [T, H, V]; seq_offsets: [B+1].
+    Returns [T, H, V] in v's dtype. Padding rows of the output are zero.
+    """
+    if scaling_seqlen == -1:
+        scaling_seqlen = max_seq_len
+    s, mask = _scores_and_mask(
+        q, k, seq_offsets, max_seq_len, alpha, causal, num_targets,
+        num_contextuals, max_attn_len, min_full_attn_seq_len, target_group_size)
+    p = F.silu(s) * (1.0 / scaling_seqlen) * mask.to(s.dtype)
+    pv = _padded(v, seq_offsets, max_seq_len)
+    out = torch.einsum("bhxy,bhyv->bhxv", p.to(v.dtype).float(), pv.float())
+    return _jagged(out.to(v.dtype), seq_offsets, q.shape[0])
+
+
+def hstu_attn_bwd_ref(
+    max_seq_len: int,
+    alpha: float,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    seq_offsets: torch.Tensor,
+    causal: bool = True,
+    num_targets: Optional[torch.Tensor] = None,
+    num_contextuals: Optional[Union[int, torch.Tensor]] = None,
+    max_attn_len: int = 0,
+    target_group_size: int = 1,
+    scaling_seqlen: int = -1,
+    min_full_attn_seq_len: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `hstu_mha_reference` by recompute (plain K2 and K3):
+
+        dP = dO v^T,  dS = dP * dsilu(S) * mask / scaling
+        dq = alpha dS k,  dk = alpha dS^T q,  dv = P^T dO
+
+    with S and P as in the forward. Rows past seq_offsets[-1] are zero.
+    """
+    if scaling_seqlen == -1:
+        scaling_seqlen = max_seq_len
+    N, T = max_seq_len, q.shape[0]
+    s, mask = _scores_and_mask(
+        q, k, seq_offsets, max_seq_len, alpha, causal, num_targets,
+        num_contextuals, max_attn_len, min_full_attn_seq_len, target_group_size)
+    m = mask.to(s.dtype) * (1.0 / scaling_seqlen)
+    sig = torch.sigmoid(s)
+    p = s * sig * m
+    do = _padded(dout.to(v.dtype), seq_offsets, N)
+    pv = _padded(v, seq_offsets, N)
+    dp = torch.einsum("bhxv,bhyv->bhxy", do.float(), pv.float())
+    ds = dp * (sig * (1.0 + s * (1.0 - sig))) * m * alpha
+    pq = _padded(q, seq_offsets, N).float()
+    pk = _padded(k, seq_offsets, N).float()
+    dq = torch.einsum("bhxy,bhya->bhxa", ds.to(k.dtype).float(), pk)
+    dk = torch.einsum("bhxy,bhxa->bhya", ds.to(q.dtype).float(), pq)
+    dv = torch.einsum("bhxy,bhxv->bhyv", p.to(do.dtype).float(), do.float())
+    return (_jagged(dq.to(q.dtype), seq_offsets, T),
+            _jagged(dk.to(k.dtype), seq_offsets, T),
+            _jagged(dv.to(v.dtype), seq_offsets, T))

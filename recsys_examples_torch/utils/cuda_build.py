@@ -2,8 +2,8 @@
 
 Each `recsys_examples_torch/csrc/<name>.cu` exposes a plain C interface and
 is compiled on first use into `recsys_examples_torch/_build/` (listed in
-.gitignore) as `lib<name>-<hash>.so`, the hash covering the source and the
-flags, so an edited source is rebuilt. PyTorch's headers stay out of the
+.gitignore) as `lib<name>-<hash>.so`, the hash covering the source, the
+shared headers `csrc/*.cuh` and the flags, so an edited source is rebuilt. PyTorch's headers stay out of the
 sources, which keeps a build to seconds. `build()` starts one nvcc per
 missing library, all at once, and waits for them together.
 """
@@ -40,6 +40,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

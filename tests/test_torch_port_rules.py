@@ -72,3 +72,44 @@ def test_entry_points_default_to_cuda():
                            table)
     assert resolve_device("cpu").type == "cpu"
     assert create_kvcache(kv_cfg, device="cpu").k_pages.device.type == "cpu"
+
+
+def test_train_entry_points_default_to_cuda():
+    from recsys_examples_torch.data.hstu_batch import random_hstu_batch
+    from recsys_examples_torch.models.ranking_gr import RankingGR
+    from recsys_examples_torch.modules.config import (
+        EmbeddingConfig, HSTUConfig, RankingConfig)
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.training.train_state import make_optimizer
+    from recsys_examples_torch.training.trainer import GRTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    cfg = HSTUConfig(hidden_size=8, num_layers=1, num_attention_heads=1,
+                     kv_channels=8, dtype=torch.float32)
+    task = RankingConfig((EmbeddingConfig(("item",), "item", 10, 8),),
+                         prediction_head_arch=(4, 1), num_tasks=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GRTrainer(RankingGR(cfg, task), make_optimizer())
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        GRTrainer(RankingGR(cfg, task), make_optimizer(), {"item": object()}, "cpu")
+    trainer = GRTrainer(RankingGR(cfg, task), make_optimizer(), device="cpu")
+    state = trainer.init(torch.Generator().manual_seed(0))
+    batch = random_hstu_batch(0, 2, 5, 10)
+    state, metrics = trainer.train_step(state, batch)
+    assert metrics["loss"].device.type == "cpu" and state.step == 1
+    assert all(p.device.type == "cpu" for p in state.model.parameters())
+
+    # the attention entry runs its plain versions on CPU tensors, and the
+    # kernel wrappers refuse them rather than fall back
+    x = torch.randn(4, 1, 32, requires_grad=True)
+    so = torch.tensor([0, 4])
+    before = (ha.hstu_attn_fwd_cuda.launches, ha.hstu_attn_bwd_dq_cuda.launches,
+              ha.hstu_attn_bwd_dkv_cuda.launches)
+    ha.hstu_attn_varlen(x, x, x, so, 4, alpha=0.1).sum().backward()
+    assert before == (ha.hstu_attn_fwd_cuda.launches, ha.hstu_attn_bwd_dq_cuda.launches,
+                      ha.hstu_attn_bwd_dkv_cuda.launches)
+    opts = ha.AttnOptions(max_seqlen=4, alpha=0.1, scaling_seqlen=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.hstu_attn_fwd_cuda(x.detach().bfloat16(), x.detach().bfloat16(),
+                              x.detach().bfloat16(), so.int(), None, None, opts)

@@ -5,24 +5,33 @@ here needs JAX:
   - `dense_state_dict` / `flax_params`: a flax param tree (an
     `InferenceDenseModule`'s or a whole `RankingGR`'s) -> the port's
     `state_dict()`, and back to numpy. flax `Dense` kernels are [in, out]
-    and become `nn.Linear.weight` [out, in].
+    and become `nn.Linear.weight` [out, in]. A layer's
+    `relative_bias/rel_bias` crosses like any other param.
   - `table_state`: an `InferenceTableState`'s keys/values -> the port's.
   - `kvcache_state` / `kvcache_to_numpy`: a `KVCacheState` as a mapping of
     field name -> array, both ways.
+  - `dynamic_table_state` / `dynamic_table_to_numpy`: a training
+    `DynamicEmbTableState` (hash table, optional admission counter table,
+    step) as nested mappings of field name -> array, both ways.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
+from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbTableState
 from recsys_examples_torch.dynamicemb.exportable_tables import InferenceTableState
+from recsys_examples_torch.dynamicemb.hashtable import HashTableState
 from recsys_examples_torch.inference.kvcache import KVCacheState
 
 KVCACHE_FIELDS = (
     "k_pages", "v_pages", "user_ids", "user_len", "user_pages", "user_lru",
     "page_owner", "clock",
+)
+HASH_TABLE_FIELDS = (
+    "keys", "scores", "values", "opt", "inserted", "evicted", "overflowed",
 )
 
 
@@ -103,3 +112,30 @@ def kvcache_state(arrays: Mapping, device="cpu") -> KVCacheState:
 
 def kvcache_to_numpy(state: KVCacheState) -> Dict[str, np.ndarray]:
     return {f: to_numpy(getattr(state, f)) for f in KVCACHE_FIELDS}
+
+
+def _hash_table(arrays: Optional[Mapping], device) -> Optional[HashTableState]:
+    if arrays is None:
+        return None
+    return HashTableState(**{
+        f: None if arrays[f] is None else to_torch(arrays[f], device).contiguous()
+        for f in HASH_TABLE_FIELDS})
+
+
+def dynamic_table_state(arrays: Mapping, device="cpu") -> DynamicEmbTableState:
+    """{"table": {field: array}, "counter": {field: array} or None,
+    "step": [1] int64} (the leaves of a JAX `DynamicEmbTableState`, `opt`
+    None for sgd) -> the port's state on `device`."""
+    return DynamicEmbTableState(
+        table=_hash_table(arrays["table"], device),
+        counter=_hash_table(arrays.get("counter"), device),
+        step=to_torch(arrays["step"], device))
+
+
+def dynamic_table_to_numpy(state: DynamicEmbTableState) -> Dict:
+    """The inverse of `dynamic_table_state`."""
+    tab = lambda h: None if h is None else {
+        f: None if getattr(h, f) is None else to_numpy(getattr(h, f))
+        for f in HASH_TABLE_FIELDS}
+    return {"table": tab(state.table), "counter": tab(state.counter),
+            "step": to_numpy(state.step)}

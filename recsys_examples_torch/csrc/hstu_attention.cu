@@ -1,5 +1,7 @@
 // Jagged SiLU (HSTU) attention for training, for Hopper (sm_90a): the
-// forward (K1), dq (K2) and dk/dv (K3).
+// forward (K1), dq (K2) and dk/dv (K3), and the same three with a dense
+// relative attention bias added to the scores (K4: forward, dq + drab,
+// dk/dv).
 //
 // Replaces the TPU kernels of recsys_examples_tpu/ops/pallas/hstu_attention.py:
 // K1 `_fwd_kernel` (launched by `_hstu_fwd_impl`), K2 `_bwd_dq_kernel` and
@@ -16,6 +18,27 @@
 // target-group purge, the max_attn_len window with its min-full tail, and
 // the in-sequence guards. Rows that no sequence owns are never written: the
 // caller zero-fills the outputs.
+//
+// K4 replaces `hstu_attn_varlen_rab` of the same file (the `has_rab`
+// branches of the three bodies). With rab [B|1, H|1, Nq, Nk] (fp32 or bf16,
+// positions local to the sequence):
+//   S = alpha q k^T + rab,  dS_rab = dP * dsilu(S) * mask / scaling,
+//   dS = alpha dS_rab,      drab += dS_rab
+// The three kernels are the RAB = true instances of K1-K3's templates: each
+// thread reads the bias of the score elements it holds before the tile's
+// products, so the loads fly behind the tensor-core work. drab is an fp32
+// tensor of rab's shape that the caller zero-fills; the dq kernel adds
+// dS_rab of its valid (row, col) pairs into it. A cell of a broadcast dim is
+// shared by the CTAs of every sequence (or head), which run in no order:
+// those adds are fp32 atomics (`red.global.add.f32`), so the sum's last bits
+// depend on the order. With a B- and H-sized rab each cell has one owner and
+// is stored. The TPU kernel instead writes a dense [B, H, N, N] and sums it
+// afterwards, 34 GB at the full-width shape. What bounds K4 there depends on
+// the batch's longest sequence: the cells of the fp32 [1, 4, 8195, 8195] bias
+// that a valid pair reaches are read once (and written once as drab), up to
+// 1.07 GB or 0.32 ms; for chip_smoke.py's batch (longest sequence about 4.6k
+// rows) that is 167 MB, and operations bound all three kernels as they do
+// K1-K3.
 //
 // What bounds it on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s): operations.
 // At a full-width training batch (32 sequences of 3 + 2 x Zipf(1.2) history
@@ -66,6 +89,28 @@ using sm90::pack_bf16;
 constexpr int NT = 256;   // 8 warps: row block warp % 4, half warp / 4
 constexpr int BT = 64;    // rows of the CTA's own tile (4 row blocks of 16)
 constexpr int BS = 32;    // rows of a streamed tile
+
+// The relative attention bias of K4. `ptr` null: no bias.
+struct Rab {
+  const void* ptr;      // [rb, rh, nq, nk], fp32 or bf16
+  float* grad;          // fp32, same shape, zero-filled (dq kernel only), or null
+  long long sb, sh;     // elements between batches / heads; 0 when broadcast
+  int nk;               // elements between rows
+  int is_bf16;
+  int atomic;           // grad cells are shared between CTAs
+  // element offset of this (sequence, head)'s [nq, nk] plane
+  __device__ size_t plane(int b, int h) const { return (size_t)(b * sb + h * sh); }
+  __device__ float at(size_t plane, int row, int col) const {
+    const size_t i = plane + (size_t)row * nk + col;
+    return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(ptr)[i])
+                   : static_cast<const float*>(ptr)[i];
+  }
+  __device__ void add_grad(size_t plane, int row, int col, float g) const {
+    if (!grad) return;   // the bias takes no gradient
+    float* dst = grad + plane + (size_t)row * nk + col;
+    if (atomic) atomicAdd(dst, g); else *dst = g;
+  }
+};
 
 struct Params {
   const int* seq_offsets;       // [B + 1]
@@ -234,6 +279,23 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld,
   }
 }
 
+// The bias of the warp's score block, in the block's element order: the
+// tile's rows start at `row0` and the streamed tile's at `col0`; with
+// `transposed` (K3) the block's rows are keys and its columns queries.
+// Elements past the sequence's end read as 0.
+__device__ __forceinline__ void load_bias(float (&bias)[2][4], const Rab& rab,
+                                          size_t plane, int n, int row0, int col0,
+                                          int rb, int hf, int lane, bool transposed) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + blk_row(rb, lane, e), c = col0 + blk_col(hf, lane, j, e);
+      bias[j][e] = (r < n && c < n) ? (transposed ? rab.at(plane, c, r) : rab.at(plane, r, c))
+                                    : 0.f;
+    }
+}
+
 // ------------------------------------------------------------ K1: forward
 template <int DH>
 constexpr size_t fwd_smem() {
@@ -241,10 +303,10 @@ constexpr size_t fwd_smem() {
   return sizeof(bf16) * (L::TILE + 4 * L::STREAM + L::PTILE);
 }
 
-template <int DH>
+template <int DH, bool RAB>
 __global__ void __launch_bounds__(NT, 2)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ out, Params p) {
+           const bf16* __restrict__ v, bf16* __restrict__ out, Params p, Rab rab) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
@@ -260,6 +322,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
   const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
+  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
 
   float o[DH / 16][4] = {};
   load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);   // joins key tile 0's group
@@ -280,14 +343,17 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* k_s = sK + buf * L::STREAM;
     const bf16* v_s = sV + buf * L::STREAM;
 
-    float sc[2][4];
+    float sc[2][4], bias[2][4];
+    if constexpr (RAB)
+      load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
     score_block<DH>(sc, sQ, k_s, rb, hf, lane);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = sc[j][e] * p.alpha;
+        float x = sc[j][e] * p.alpha;
+        if constexpr (RAB) x += bias[j][e];
         pv[e] = s.valid(p, m0 + blk_row(rb, lane, e), ci * BS + blk_col(hf, lane, j, e))
                     ? x * sigmoid(x) * p.inv_scaling : 0.f;
       }
@@ -307,11 +373,11 @@ constexpr size_t dq_smem() {
   return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + L::PTILE);
 }
 
-template <int DH>
+template <int DH, bool RAB>
 __global__ void __launch_bounds__(NT, 1)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          bf16* __restrict__ dq, Params p) {
+          bf16* __restrict__ dq, Params p, Rab rab) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
@@ -329,6 +395,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
   const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
   const float ds_scale = p.inv_scaling * p.alpha;
+  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
 
   float acc[DH / 16][4] = {};
   load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);
@@ -350,7 +417,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* k_s = sK + buf * L::STREAM;
     const bf16* v_s = sV + buf * L::STREAM;
 
-    float sc[2][4], dp[2][4];
+    float sc[2][4], dp[2][4], bias[2][4];
+    if constexpr (RAB)
+      load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
     score_block<DH>(sc, sQ, k_s, rb, hf, lane);
     score_block<DH>(dp, sO, v_s, rb, hf, lane);
 #pragma unroll
@@ -358,9 +427,20 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = sc[j][e] * p.alpha, sg = sigmoid(x);
-        ds[e] = s.valid(p, m0 + blk_row(rb, lane, e), ci * BS + blk_col(hf, lane, j, e))
-                    ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * ds_scale : 0.f;
+        const int row = m0 + blk_row(rb, lane, e), col = ci * BS + blk_col(hf, lane, j, e);
+        const bool ok = s.valid(p, row, col);
+        float x = sc[j][e] * p.alpha;
+        if constexpr (RAB) {
+          x += bias[j][e];
+          const float sg = sigmoid(x);
+          // the bias enters the score with factor 1, q k^T with alpha
+          const float g = ok ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * p.inv_scaling : 0.f;
+          if (ok) rab.add_grad(plane, row, col, g);
+          ds[e] = g * p.alpha;
+        } else {
+          const float sg = sigmoid(x);
+          ds[e] = ok ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * ds_scale : 0.f;
+        }
       }
       put_block<DH>(sS, rb, hf, lane, j, ds);
     }
@@ -378,11 +458,11 @@ constexpr size_t dkv_smem() {
   return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + 2 * L::PTILE);
 }
 
-template <int DH>
+template <int DH, bool RAB>
 __global__ void __launch_bounds__(NT, 1)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, Params p) {
+           bf16* __restrict__ dk, bf16* __restrict__ dv, Params p, Rab rab) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
@@ -400,6 +480,7 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
   const float ds_scale = p.inv_scaling * p.alpha;
+  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
 
   // query tiles that reach keys [n0, n0 + BT): when causal, the tiles of the
   // contextual rows [0, c), then the tiles from the key tile on; else all
@@ -435,7 +516,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int q0 = q_row0(ci);
 
     // transposed scores: rows are keys, columns queries
-    float st[2][4], dpt[2][4];
+    float st[2][4], dpt[2][4], bias[2][4];
+    if constexpr (RAB)
+      load_bias(bias, rab, plane, s.n, n0, q0, rb, hf, lane, true);
     score_block<DH>(st, sK, q_s, rb, hf, lane);
     score_block<DH>(dpt, sV, o_s, rb, hf, lane);
 #pragma unroll
@@ -443,7 +526,9 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float pv[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = st[j][e] * p.alpha, sg = sigmoid(x);
+        float x = st[j][e] * p.alpha;
+        if constexpr (RAB) x += bias[j][e];
+        const float sg = sigmoid(x);
         const bool ok =
             s.valid(p, q0 + blk_col(hf, lane, j, e), n0 + blk_row(rb, lane, e));
         pv[e] = ok ? x * sg * p.inv_scaling : 0.f;
@@ -482,26 +567,35 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
                 causal, group, max_attn_len, min_full};
 }
 
-#define HSTU_DISPATCH_DH(dh, CALL)                  \
-  switch (dh) {                                     \
-    case 32: { constexpr int DH = 32; return CALL; }   \
-    case 64: { constexpr int DH = 64; return CALL; }   \
-    case 128: { constexpr int DH = 128; return CALL; } \
-    case 256: { constexpr int DH = 256; return CALL; } \
-    default: return -1;                             \
+// CALL names the kernel as KERNEL<DH, RAB>
+#define HSTU_DISPATCH_RAB(CALL)                                       \
+  if (r.ptr) { constexpr bool RAB = true; return CALL; }              \
+  else { constexpr bool RAB = false; return CALL; }
+#define HSTU_DISPATCH_DH(dh, CALL)                                    \
+  switch (dh) {                                                       \
+    case 32: { constexpr int DH = 32; HSTU_DISPATCH_RAB(CALL) }       \
+    case 64: { constexpr int DH = 64; HSTU_DISPATCH_RAB(CALL) }       \
+    case 128: { constexpr int DH = 128; HSTU_DISPATCH_RAB(CALL) }     \
+    case 256: { constexpr int DH = 256; HSTU_DISPATCH_RAB(CALL) }     \
+    default: return -1;                                               \
   }
 
 }  // namespace
 
 // All three take bf16 [T, H, dh] tensors (dh 32, 64, 128 or 256), int32
 // seq_offsets [B + 1] and optional int32 num_contextuals / num_targets [B]
-// (null when absent). Each returns the CUDA error code of its launch (0 on
-// success) or -1 for an unsupported head dim or group size.
+// (null when absent). `rab` (null when absent) is the fp32 or bf16 bias
+// [rb, rh, nq, nk] with `rab_sb` / `rab_sh` elements between batches / heads
+// (0 for a broadcast dim) and `rab_nk` between rows; the dq kernel adds the
+// bias gradient into the zero-filled fp32 `drab` of the same layout, with
+// atomics when `drab_atomic`. Each returns the CUDA error code of its launch
+// (0 on success) or -1 for an unsupported head dim or group size.
 #define HSTU_COMMON_ARGS                                                         \
   const int *seq_offsets, const int *num_contextuals, const int *num_targets,    \
       int B, int H, int dh, int max_seqlen, float alpha, float inv_scaling,      \
       int causal, int target_group_size, int max_attn_len,                       \
-      int min_full_attn_seq_len, void *stream
+      int min_full_attn_seq_len, const void *rab, void *drab, long long rab_sb,  \
+      long long rab_sh, int rab_nk, int rab_is_bf16, int drab_atomic, void *stream
 
 #define HSTU_PROLOGUE                                                            \
   if (target_group_size < 1) return -1;                                          \
@@ -509,6 +603,8 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
   const Params p = make_params(seq_offsets, num_contextuals, num_targets, H,     \
                                alpha, inv_scaling, causal, target_group_size,    \
                                max_attn_len, min_full_attn_seq_len);             \
+  const Rab r{rab, static_cast<float*>(drab), rab_sb, rab_sh, rab_nk,            \
+              rab_is_bf16, drab_atomic};                                         \
   const dim3 grid((max_seqlen + BT - 1) / BT, H, B);                             \
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
@@ -518,7 +614,7 @@ extern "C" int hstu_attn_fwd_launch(const void* q, const void* k, const void* v,
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v);
   bf16* O = static_cast<bf16*>(out);
-  HSTU_DISPATCH_DH(dh, launch(fwd_kernel<DH>, fwd_smem<DH>(), grid, st, Q, K, V, O, p))
+  HSTU_DISPATCH_DH(dh, launch(fwd_kernel<DH, RAB>, fwd_smem<DH>(), grid, st, Q, K, V, O, p, r))
 }
 
 extern "C" int hstu_attn_bwd_dq_launch(const void* q, const void* k, const void* v,
@@ -527,7 +623,7 @@ extern "C" int hstu_attn_bwd_dq_launch(const void* q, const void* k, const void*
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
   bf16* dQ = static_cast<bf16*>(dq);
-  HSTU_DISPATCH_DH(dh, launch(dq_kernel<DH>, dq_smem<DH>(), grid, st, Q, K, V, dO, dQ, p))
+  HSTU_DISPATCH_DH(dh, launch(dq_kernel<DH, RAB>, dq_smem<DH>(), grid, st, Q, K, V, dO, dQ, p, r))
 }
 
 extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void* v,
@@ -537,6 +633,6 @@ extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
   bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
-  HSTU_DISPATCH_DH(dh, launch(dkv_kernel<DH>, dkv_smem<DH>(), grid, st, Q, K, V, dO,
-                              dK, dV, p))
+  HSTU_DISPATCH_DH(dh, launch(dkv_kernel<DH, RAB>, dkv_smem<DH>(), grid, st, Q, K, V,
+                              dO, dK, dV, p, r))
 }

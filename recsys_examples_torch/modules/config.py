@@ -2,8 +2,8 @@
 
 The dtype is a torch dtype. The kernel choice needs no field: a kernel
 wrapper launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
-version for CPU tensors. Fields of unported features (the relative bias's
-buckets, sequence parallelism, eval metrics, table sharding) and the
+version for CPU tensors. Fields of unported features (sequence
+parallelism, eval metrics, table sharding) and the
 TPU-only ones (the Pallas block sizes, the block-aligned layout) are not
 carried over.
 """
@@ -40,7 +40,10 @@ class HSTUConfig:
     is_causal: bool = True
     target_group_size: int = 1
     max_attn_len: int = 0
-    use_relative_attention_bias: bool = False   # K4: not ported yet
+    # trainable T5-style relative attention bias (dense rab + drab: K4)
+    use_relative_attention_bias: bool = False
+    relative_bias_num_buckets: int = 128
+    relative_bias_max_distance: int = 1024
     position_encoding_config: Optional[PositionEncodingConfig] = None
     tensor_model_parallel_size: int = 1         # > 1: not ported yet
     item_embedding_dim: int = 0        # > 0 enables the item MLP

@@ -2,8 +2,8 @@
 recsys_examples_tpu/modules/hstu_attention.py `create_hstu_attention`).
 
 The returned function calls `ops.hstu_attention.hstu_attn_varlen`: the CUDA
-kernels K1-K3 for CUDA tensors, their plain versions for CPU tensors. Like
-the JAX factory it passes no `min_full_attn_seq_len`.
+kernels K1-K3 (with `rab`: K4) for CUDA tensors, their plain versions for
+CPU tensors. Like the JAX factory it passes no `min_full_attn_seq_len`.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def create_hstu_attention(config: HSTUConfig) -> AttentionFn:
         num_contextuals: Optional[torch.Tensor] = None,
         num_targets: Optional[torch.Tensor] = None,
         scaling_seqlen: int = -1,
-        rab: Optional[torch.Tensor] = None,
+        rab: Optional[torch.Tensor] = None,   # [B|1, H|1, N, N]
     ) -> torch.Tensor:
         out = hstu_attn_varlen(
             q, k, v, seq_offsets, max_seqlen,

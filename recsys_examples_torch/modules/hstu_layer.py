@@ -5,8 +5,9 @@ recsys_examples_tpu/modules/hstu_layer.py `HSTULayer`).
 Params keep flax's names and shapes (the uvqk kernel stays chunked
 [D, 4, H*dh]), so converting them is a plain copy. They are fp32 and are
 cast to `config.dtype` inside the forward, as flax's `dtype=` does; no
-autocast. Tensor parallelism and the relative attention bias are not ported
-yet.
+autocast. With `use_relative_attention_bias` the layer owns a
+`relative_bias` submodule and passes its dense bias to the attention (K4).
+Tensor parallelism is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from recsys_examples_torch.jagged.jagged_tensor import JaggedData
 from recsys_examples_torch.modules.config import HSTUConfig
 from recsys_examples_torch.modules.hstu_attention import create_hstu_attention
 from recsys_examples_torch.modules.mlp import lecun_normal_
+from recsys_examples_torch.modules.position_encoder import RelativeAttentionBias
 
 
 class LayerNorm(nn.Module):
@@ -67,8 +69,6 @@ class HSTULayer(nn.Module):
         super().__init__()
         if config.tensor_model_parallel_size > 1:
             raise NotImplementedError("tensor parallelism is not ported yet")
-        if config.use_relative_attention_bias:
-            raise NotImplementedError("the relative attention bias (K4) is not ported yet")
         cfg = self.config = config
         D, HD = cfg.hidden_size, cfg.num_attention_heads * cfg.kv_channels
         self.input_layernorm = LayerNorm(
@@ -79,6 +79,12 @@ class HSTULayer(nn.Module):
         self.output_layernorm = LayerNorm(
             HD, cfg.layernorm_epsilon, cfg.learnable_output_layernorm, cfg.dtype, device)
         self.linear_proj = nn.Linear(HD, D, bias=False, device=device)
+        if cfg.use_relative_attention_bias:
+            self.relative_bias = RelativeAttentionBias(
+                cfg.num_attention_heads, cfg.relative_bias_num_buckets,
+                cfg.relative_bias_max_distance, cfg.is_causal, device)
+        else:
+            self.relative_bias = None
         self.attn = create_hstu_attention(cfg)
 
     @torch.no_grad()
@@ -111,6 +117,7 @@ class HSTULayer(nn.Module):
             num_contextuals=None if cfg.disable_contextual_mask else jd.contextual_seqlen,
             num_targets=jd.num_candidates,
             scaling_seqlen=jd.scaling_seqlen if jd.scaling_seqlen > 0 else jd.max_seqlen,
+            rab=None if self.relative_bias is None else self.relative_bias(jd.max_seqlen),
         ).reshape(-1, H * dh)
         y = self.output_layernorm(attn) * u
         if train and cfg.hidden_dropout > 0.0:

@@ -1,15 +1,23 @@
-"""HSTU positional (+ timestamp) encoder (counterpart of
-recsys_examples_tpu/modules/position_encoder.py `HSTUPositionalEncoder`).
+"""HSTU positional (+ timestamp) encoder and the trainable relative
+attention bias (counterpart of recsys_examples_tpu/modules/position_encoder.py
+`HSTUPositionalEncoder`, `t5_relative_buckets`, `RelativeAttentionBias`).
 
 The position index of token i in its sequence is `min(i, high)` with
 `high = clamp(seqlen - num_targets, 0, num_buckets - 1)`; the embedding is
 added to `x * sqrt(dim)`. The stored tables are flax's: uniform in
 [0, 2/sqrt(P)), shifted by -1/sqrt(P) when read. Plain autograd gives the
 table's gradient (the JAX package's custom VJP only works around TPU
-scatters). `RelativeAttentionBias` waits with kernel K4.
+scatters).
+
+`RelativeAttentionBias` returns the dense fp32 bias [1, H, N, N] that the
+attention (kernel K4) takes: `rel_bias[bucket(i - j)]`. The bias depends on
+i - j only, so it is built from the 2N - 1 values of one diagonal each, and
+its gradient is summed along the diagonals first: the [N, N] bucket index
+and the sort-based index backward over N * N rows are never made.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -79,3 +87,82 @@ class HSTUPositionalEncoder(nn.Module):
 
         valid = torch.arange(T, device=dev) < offsets[-1]
         return torch.where(valid[:, None], out, out.new_zeros(()))
+
+
+def t5_relative_buckets(rel: torch.Tensor, num_buckets: int, max_distance: int,
+                        causal: bool) -> torch.Tensor:
+    """T5-style log-bucketed relative positions (rel = q_pos - k_pos, an
+    integer tensor): exact below half the buckets, logarithmic up to
+    `max_distance`, clamped beyond. The log ratio is evaluated in fp32 and
+    truncated, in the JAX package's order."""
+    n = num_buckets
+    if causal:
+        rel = rel.clamp_min(0)
+        base = torch.zeros_like(rel)
+    else:
+        n = n // 2
+        base = (rel < 0).to(rel.dtype) * n
+        rel = rel.abs()
+    max_exact = n // 2
+    large = max_exact + (
+        torch.log(rel.clamp_min(1).to(torch.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (n - max_exact)
+    ).to(rel.dtype)
+    large = large.clamp_max(n - 1)
+    return base + torch.where(rel < max_exact, rel, large)
+
+
+class _Toeplitz(torch.autograd.Function):
+    """vec [H, 2N-1] -> [H, N, N] with out[h, i, j] = vec[h, N-1-i+j]."""
+
+    @staticmethod
+    def forward(ctx, vec, N):
+        ctx.N = N
+        H = vec.shape[0]
+        hankel = vec.contiguous().as_strided((H, N, N), (2 * N - 1, 1, 1))
+        return hankel.flip(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # d vec[h, m] = the sum of g[h, i, j] over N-1-i+j = m: copy row i
+        # into row i of a zeroed [N, 2N-1] buffer, shifted right by N-1-i
+        # (element (i, j) lands at flat i * (2N-2) + j + N-1), and sum the rows
+        N = ctx.N
+        H = g.shape[0]
+        out = g.new_empty((H, 2 * N - 1))
+        for h in range(H):      # one head at a time: the buffer is 2 N^2 floats
+            buf = g.new_zeros((N * (2 * N - 1),))
+            buf.as_strided((N, N), (2 * N - 2, 1), N - 1).copy_(g[h])
+            out[h] = buf.view(N, 2 * N - 1).sum(0)
+        return out, None
+
+
+class RelativeAttentionBias(nn.Module):
+    """Trainable relative attention bias: param `rel_bias` [num_buckets, H],
+    normal(0.02). `forward(max_seqlen)` returns the dense fp32 bias
+    [1, H, N, N] with `[0, h, i, j] = rel_bias[bucket(i - j), h]`."""
+
+    def __init__(self, num_heads: int, num_buckets: int = 128, max_distance: int = 1024,
+                 causal: bool = True, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_buckets = num_buckets
+        self.max_distance = max_distance
+        self.causal = causal
+        self.rel_bias = nn.Parameter(torch.empty(num_buckets, num_heads, device=device))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        self.rel_bias.copy_(0.02 * torch.randn(
+            self.rel_bias.shape, generator=generator, device=generator.device))
+
+    def forward(self, max_seqlen: int) -> torch.Tensor:
+        N = max_seqlen
+        # diagonal m of the bias holds rel = i - j = N-1-m
+        rel = (N - 1) - torch.arange(2 * N - 1, device=self.rel_bias.device)
+        bucket = t5_relative_buckets(rel, self.num_buckets, self.max_distance, self.causal)
+        # index_select: its backward is an index_add, not the sort-based
+        # backward of advanced indexing (most diagonals share two buckets)
+        vec = self.rel_bias.index_select(0, bucket).t()     # [H, 2N-1]
+        return _Toeplitz.apply(vec, N)[None]        # [1, H, N, N]

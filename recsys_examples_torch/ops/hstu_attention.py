@@ -1,16 +1,19 @@
 """Jagged varlen HSTU (SiLU) attention with its gradient (counterpart of
-recsys_examples_tpu/ops/pallas/hstu_attention.py `hstu_attn_varlen`).
+recsys_examples_tpu/ops/pallas/hstu_attention.py `hstu_attn_varlen` and
+`hstu_attn_varlen_rab`).
 
 `hstu_attn_varlen` is a `torch.autograd.Function` over packed [T, H, D]
 q, k, v and `seq_offsets [B+1]`, as the original `hstu_attn_varlen_func`
-takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv):
+takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv); with
+a relative attention bias `rab` the three kernels of K4 run instead (forward,
+dq + drab, dk/dv):
   - CUDA tensors launch the hand-written kernels of `csrc/hstu_attention.cu`
     (bf16, head dims 32/64/128/256) or raise;
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
 Each kernel wrapper counts its launches in `.launches`.
 
-Not ported yet: the relative attention bias (K4, `hstu_attn_varlen_rab`)
-and the int8 forward (K5, `hstu_attn_varlen_quantized_calibrated`).
+Not ported yet: the int8 forward (K5,
+`hstu_attn_varlen_quantized_calibrated`).
 """
 from __future__ import annotations
 
@@ -48,7 +51,9 @@ class AttnOptions:
 
 # ------------------------------------------------------------ CUDA wrappers
 _COMMON = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]     # rab, drab, their strides and flags; the stream
 _ENTRIES = {
     "hstu_attn_fwd_launch": 4,        # q, k, v, out
     "hstu_attn_bwd_dq_launch": 5,     # q, k, v, dO, dq
@@ -78,8 +83,32 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _rab_args(rab, drab, B, H, opts: AttnOptions, dev):
+    """The kernels' bias arguments: pointers, batch and head strides (0 for a
+    broadcast dim), row stride, dtype flag, and whether drab's cells are
+    shared between CTAs (a broadcast dim: fp32 atomics)."""
+    if rab is None:
+        return (None, None, 0, 0, 0, 0, 0)
+    N = opts.max_seqlen
+    if rab.dim() != 4 or rab.shape[0] not in (1, B) or rab.shape[1] not in (1, H) \
+            or rab.shape[2] < N or rab.shape[3] < N:
+        raise ValueError(f"rab has shape {tuple(rab.shape)}, expected "
+                         f"[{B}|1, {H}|1, >={N}, >={N}]")
+    if rab.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rab has dtype {rab.dtype}, expected float32 or bfloat16")
+    if rab.device != dev or not rab.is_contiguous():
+        raise ValueError(f"rab must be contiguous on {dev}")
+    sb = 0 if rab.shape[0] == 1 else rab.stride(0)
+    sh = 0 if rab.shape[1] == 1 else rab.stride(1)
+    if drab is not None:
+        _check("drab", drab, torch.float32, rab.shape, dev)
+    shared = (rab.shape[0] == 1 and B > 1) or (rab.shape[1] == 1 and H > 1)
+    return (rab.data_ptr(), None if drab is None else drab.data_ptr(), sb, sh,
+            rab.shape[3], int(rab.dtype == torch.bfloat16), int(shared))
+
+
 def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
-            opts: AttnOptions):
+            opts: AttnOptions, rab=None, drab=None):
     """Check the operands and launch `entry` on the current stream."""
     q = tensors[0]
     T, H, dh = q.shape
@@ -106,7 +135,8 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
             B, H, dh, opts.max_seqlen, float(opts.alpha),
             1.0 / float(opts.scaling_seqlen), int(opts.causal),
             opts.target_group_size, opts.max_attn_len,
-            opts.min_full_attn_seq_len, torch.cuda.current_stream(dev).cuda_stream,
+            opts.min_full_attn_seq_len, *_rab_args(rab, drab, B, H, opts, dev),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} failed: error {err}")
@@ -143,9 +173,49 @@ def hstu_attn_bwd_dkv_cuda(q, k, v, dout, seq_offsets, num_contextuals,
     return dk, dv
 
 
+def hstu_attn_rab_fwd_cuda(q, k, v, rab, seq_offsets, num_contextuals, num_targets,
+                           opts: AttnOptions) -> torch.Tensor:
+    """K4 forward: K1 with `rab` [B|1, H|1, Nq, Nk] (fp32 or bf16) added to
+    the scores."""
+    out = torch.zeros_like(q)
+    _launch("hstu_attn_fwd_launch", (q, k, v), (out,), seq_offsets,
+            num_contextuals, num_targets, opts, rab)
+    hstu_attn_rab_fwd_cuda.launches += 1
+    return out
+
+
+def hstu_attn_rab_bwd_dq_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
+                              num_targets, opts: AttnOptions, need_drab: bool = True
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K4 dq + drab. drab is fp32 of rab's shape: a broadcast dim of rab is
+    summed by fp32 atomics (the last bits depend on their order); cells no
+    valid (row, col) pair reaches are zero."""
+    dq = torch.zeros_like(q)
+    drab = torch.zeros(rab.shape, dtype=torch.float32, device=rab.device) \
+        if need_drab else None
+    _launch("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
+            num_contextuals, num_targets, opts, rab, drab)
+    hstu_attn_rab_bwd_dq_cuda.launches += 1
+    return dq, drab
+
+
+def hstu_attn_rab_bwd_dkv_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
+                               num_targets, opts: AttnOptions
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 dk, dv."""
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    _launch("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
+            num_contextuals, num_targets, opts, rab)
+    hstu_attn_rab_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
 hstu_attn_fwd_cuda.launches = 0
 hstu_attn_bwd_dq_cuda.launches = 0
 hstu_attn_bwd_dkv_cuda.launches = 0
+hstu_attn_rab_fwd_cuda.launches = 0
+hstu_attn_rab_bwd_dq_cuda.launches = 0
+hstu_attn_rab_bwd_dkv_cuda.launches = 0
 
 
 # ------------------------------------------------------------ dispatch
@@ -156,47 +226,62 @@ def _on(device: torch.device) -> str:
 
 
 def hstu_attn_fwd(q, k, v, seq_offsets, num_contextuals, num_targets,
-                  opts: AttnOptions) -> torch.Tensor:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+                  opts: AttnOptions, rab=None) -> torch.Tensor:
+    """K1 (with `rab`: K4's forward) on CUDA tensors, the plain version on
+    CPU tensors."""
     if _on(q.device) == "cuda":
+        if rab is not None:
+            return hstu_attn_rab_fwd_cuda(q, k, v, rab, seq_offsets, num_contextuals,
+                                          num_targets, opts)
         return hstu_attn_fwd_cuda(q, k, v, seq_offsets, num_contextuals,
                                   num_targets, opts)
     return hstu_mha_reference(
         opts.max_seqlen, opts.alpha, q, k, v, seq_offsets,
-        num_targets=num_targets, num_contextuals=num_contextuals,
+        num_targets=num_targets, num_contextuals=num_contextuals, rab=rab,
         **opts.ref_kwargs())
 
 
 def hstu_attn_bwd(q, k, v, dout, seq_offsets, num_contextuals, num_targets,
-                  opts: AttnOptions):
-    """(dq, dk, dv): K2 then K3 on CUDA tensors, the plain versions on CPU
-    tensors. dO is cast to v's dtype first."""
+                  opts: AttnOptions, rab=None, need_drab: bool = True):
+    """(dq, dk, dv, drab): K2 then K3 (with `rab`: K4's two backward kernels)
+    on CUDA tensors, the plain versions on CPU tensors. dO is cast to v's
+    dtype first. drab has rab's shape and dtype, and is None without `rab`
+    or when not needed."""
     dout = dout.to(v.dtype).contiguous()
     if _on(q.device) == "cuda":
+        if rab is not None:
+            dq, drab = hstu_attn_rab_bwd_dq_cuda(
+                q, k, v, dout, rab, seq_offsets, num_contextuals, num_targets, opts,
+                need_drab)
+            dk, dv = hstu_attn_rab_bwd_dkv_cuda(
+                q, k, v, dout, rab, seq_offsets, num_contextuals, num_targets, opts)
+            return dq, dk, dv, None if drab is None else drab.to(rab.dtype)
         dq = hstu_attn_bwd_dq_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                                    num_targets, opts)
         dk, dv = hstu_attn_bwd_dkv_cuda(q, k, v, dout, seq_offsets,
                                         num_contextuals, num_targets, opts)
-        return dq, dk, dv
+        return dq, dk, dv, None
     return hstu_attn_bwd_ref(
         opts.max_seqlen, opts.alpha, q, k, v, dout, seq_offsets,
-        num_targets=num_targets, num_contextuals=num_contextuals,
+        num_targets=num_targets, num_contextuals=num_contextuals, rab=rab,
         **opts.ref_kwargs())
 
 
 class _HSTUAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seq_offsets, num_contextuals, num_targets, opts):
+    def forward(ctx, q, k, v, rab, seq_offsets, num_contextuals, num_targets, opts):
         ctx.opts = opts
-        ctx.save_for_backward(q, k, v, seq_offsets, num_contextuals, num_targets)
-        return hstu_attn_fwd(q, k, v, seq_offsets, num_contextuals, num_targets, opts)
+        ctx.save_for_backward(q, k, v, rab, seq_offsets, num_contextuals, num_targets)
+        return hstu_attn_fwd(q, k, v, seq_offsets, num_contextuals, num_targets, opts,
+                             rab)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, seq_offsets, num_contextuals, num_targets = ctx.saved_tensors
-        dq, dk, dv = hstu_attn_bwd(q, k, v, dout, seq_offsets, num_contextuals,
-                                   num_targets, ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, rab, seq_offsets, num_contextuals, num_targets = ctx.saved_tensors
+        dq, dk, dv, drab = hstu_attn_bwd(
+            q, k, v, dout, seq_offsets, num_contextuals, num_targets, ctx.opts, rab,
+            need_drab=ctx.needs_input_grad[3])
+        return dq, dk, dv, drab, None, None, None, None
 
 
 def hstu_attn_varlen(
@@ -220,12 +305,13 @@ def hstu_attn_varlen(
     """Jagged varlen HSTU attention: q, k [T, H, D], v [T, H, V] -> [T, H, V].
 
     `scaling_seqlen` -1 means `max_seqlen`, the static length bound (not the
-    batch's longest sequence). On CUDA the offsets and counts are passed to
-    the kernels as int32.
+    batch's longest sequence). `rab` [B|1, H|1, Nq, Nk] with Nq, Nk >=
+    max_seqlen, fp32 or bf16, is added to the scores before the SiLU; its
+    gradient comes back in its shape and dtype. On CUDA the offsets and
+    counts are passed to the kernels as int32.
     """
-    if rab is not None or quantized:
-        raise NotImplementedError(
-            "relative attention bias (K4) and int8 attention (K5) are not ported yet")
+    if quantized:
+        raise NotImplementedError("int8 attention (K5) is not ported yet")
     opts = AttnOptions(
         max_seqlen=int(max_seqlen), alpha=float(alpha),
         scaling_seqlen=int(max_seqlen if scaling_seqlen == -1 else scaling_seqlen),
@@ -237,4 +323,5 @@ def hstu_attn_varlen(
         i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
         seq_offsets = i32(seq_offsets)
         num_contextuals, num_targets = i32(num_contextuals), i32(num_targets)
-    return _HSTUAttention.apply(q, k, v, seq_offsets, num_contextuals, num_targets, opts)
+    return _HSTUAttention.apply(q, k, v, rab, seq_offsets, num_contextuals, num_targets,
+                                opts)

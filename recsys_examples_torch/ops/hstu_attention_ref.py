@@ -2,13 +2,14 @@
 backward (counterpart of recsys_examples_tpu/ops/hstu_attention_ref.py).
 
 These are the plain versions of the CUDA kernels K1 (forward), K2 (dq) and
-K3 (dk/dv) in `csrc/hstu_attention.cu`: the CPU path of
+K3 (dk/dv) in `csrc/hstu_attention.cu`, and with `rab` of K4 (the same three
+with a relative attention bias, and its gradient): the CPU path of
 `ops.hstu_attention.hstu_attn_varlen`, and what `chip_smoke.py` holds the
 kernels against on the card.
 
 HSTU attention is SiLU attention, not softmax:
 
-    S = alpha q k^T,  P = silu(S) / scaling_seqlen * mask,  out = P v
+    S = alpha q k^T (+ rab),  P = silu(S) / scaling_seqlen * mask,  out = P v
 
 Sums are fp32; the bf16 rounding points are those of the kernels: P to v's
 dtype before P v; in the backward dO to v's dtype, dS to k's dtype for dq
@@ -101,12 +102,15 @@ def _jagged(x: torch.Tensor, seq_offsets: torch.Tensor, T: int) -> torch.Tensor:
 
 def _scores_and_mask(q, k, seq_offsets, max_seq_len, alpha, causal, num_targets,
                      num_contextuals, max_attn_len, min_full_attn_seq_len,
-                     target_group_size):
-    """Padded fp32 scores alpha q k^T [B, H, N, N] and the [B, 1, N, N] mask."""
+                     target_group_size, rab=None):
+    """Padded fp32 scores alpha q k^T (+ rab) [B, H, N, N] and the
+    [B, 1, N, N] mask."""
     N = max_seq_len
     pq = _padded(q, seq_offsets, N).float()
     pk = _padded(k, seq_offsets, N).float()
     s = torch.einsum("bhxa,bhya->bhxy", pq, pk) * alpha
+    if rab is not None:
+        s = s + rab[:, :, :N, :N].float()
     mask = get_valid_attn_mask(
         causal=causal, N=N, seq_lengths=seq_offsets[1:] - seq_offsets[:-1],
         num_targets=num_targets, max_attn_len=max_attn_len,
@@ -131,17 +135,20 @@ def hstu_mha_reference(
     target_group_size: int = 1,
     scaling_seqlen: int = -1,
     min_full_attn_seq_len: int = 0,
+    rab: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Jagged HSTU multi-head attention, dense-padded (plain K1).
+    """Jagged HSTU multi-head attention, dense-padded (plain K1; with `rab`
+    plain K4 forward).
 
-    q, k: [T, H, D]; v: [T, H, V]; seq_offsets: [B+1].
+    q, k: [T, H, D]; v: [T, H, V]; seq_offsets: [B+1]; rab: [B|1, H|1, Nq, Nk]
+    with Nq, Nk >= max_seq_len, added to the scores before the SiLU.
     Returns [T, H, V] in v's dtype. Padding rows of the output are zero.
     """
     if scaling_seqlen == -1:
         scaling_seqlen = max_seq_len
     s, mask = _scores_and_mask(
         q, k, seq_offsets, max_seq_len, alpha, causal, num_targets,
-        num_contextuals, max_attn_len, min_full_attn_seq_len, target_group_size)
+        num_contextuals, max_attn_len, min_full_attn_seq_len, target_group_size, rab)
     p = F.silu(s) * (1.0 / scaling_seqlen) * mask.to(s.dtype)
     pv = _padded(v, seq_offsets, max_seq_len)
     out = torch.einsum("bhxy,bhyv->bhxv", p.to(v.dtype).float(), pv.float())
@@ -163,27 +170,42 @@ def hstu_attn_bwd_ref(
     target_group_size: int = 1,
     scaling_seqlen: int = -1,
     min_full_attn_seq_len: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of `hstu_mha_reference` by recompute (plain K2 and K3):
+    rab: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dq, dk, dv, drab) of `hstu_mha_reference` by recompute (plain K2 and
+    K3; with `rab` plain K4 backward, else drab is None):
 
-        dP = dO v^T,  dS = dP * dsilu(S) * mask / scaling
-        dq = alpha dS k,  dk = alpha dS^T q,  dv = P^T dO
+        dP = dO v^T,  dS_rab = dP * dsilu(S) * mask / scaling,  dS = alpha dS_rab
+        dq = dS k,  dk = dS^T q,  dv = P^T dO,  drab = dS_rab
 
-    with S and P as in the forward. Rows past seq_offsets[-1] are zero.
+    with S and P as in the forward. Rows past seq_offsets[-1] are zero. drab
+    has rab's shape and dtype: its broadcast dims are summed (in fp32), and
+    cells past max_seq_len or that no valid (row, col) pair reaches are zero.
     """
     if scaling_seqlen == -1:
         scaling_seqlen = max_seq_len
     N, T = max_seq_len, q.shape[0]
     s, mask = _scores_and_mask(
         q, k, seq_offsets, max_seq_len, alpha, causal, num_targets,
-        num_contextuals, max_attn_len, min_full_attn_seq_len, target_group_size)
+        num_contextuals, max_attn_len, min_full_attn_seq_len, target_group_size, rab)
     m = mask.to(s.dtype) * (1.0 / scaling_seqlen)
     sig = torch.sigmoid(s)
     p = s * sig * m
     do = _padded(dout.to(v.dtype), seq_offsets, N)
     pv = _padded(v, seq_offsets, N)
     dp = torch.einsum("bhxv,bhyv->bhxy", do.float(), pv.float())
-    ds = dp * (sig * (1.0 + s * (1.0 - sig))) * m * alpha
+    ds_rab = dp * (sig * (1.0 + s * (1.0 - sig))) * m
+    ds = ds_rab * alpha
+    drab = None
+    if rab is not None:
+        drab = torch.zeros(rab.shape, dtype=torch.float32, device=rab.device)
+        g = ds_rab
+        if rab.shape[0] == 1 and g.shape[0] > 1:
+            g = g.sum(dim=0, keepdim=True)
+        if rab.shape[1] == 1 and g.shape[1] > 1:
+            g = g.sum(dim=1, keepdim=True)
+        drab[:, :, :N, :N] = g
+        drab = drab.to(rab.dtype)
     pq = _padded(q, seq_offsets, N).float()
     pk = _padded(k, seq_offsets, N).float()
     dq = torch.einsum("bhxy,bhya->bhxa", ds.to(k.dtype).float(), pk)
@@ -191,4 +213,5 @@ def hstu_attn_bwd_ref(
     dv = torch.einsum("bhxy,bhxv->bhyv", p.to(do.dtype).float(), do.float())
     return (_jagged(dq.to(q.dtype), seq_offsets, T),
             _jagged(dk.to(k.dtype), seq_offsets, T),
-            _jagged(dv.to(v.dtype), seq_offsets, T))
+            _jagged(dv.to(v.dtype), seq_offsets, T),
+            drab)

@@ -1,11 +1,18 @@
-"""GR trainer: the dense train step (counterpart of
-recsys_examples_tpu/training/trainer.py `GRTrainer`).
+"""GR trainer: fused sparse (dynamic embedding) + dense train step
+(counterpart of recsys_examples_tpu/training/trainer.py `GRTrainer`).
 
-One step = the dense forward and backward (the JAX trainer's phase B) and
-the dense optimizer update. Every table is a static `EmbeddingCollection`
-table, updated by the dense optimizer with the rest of the params; the
-dynamic hash tables (phases A and C) are not ported yet. PyTorch updates
-the params and the optimizer state in place.
+  one step =
+    phase A  sparse forward   (no autograd: unique, lookup, insert)
+    phase B  dense fwd/bwd    (autograd; grads flow to the per-token
+                               embedding tensors returned by phase A)
+    dense optimizer update    (torch.optim)
+    phase C  sparse backward  (token grads summed per unique row, fused
+                               row optimizer on the table)
+
+Features listed in `sparse_tables` use dynamic hash tables; the others use
+the model's static `EmbeddingCollection` tables, updated by the dense
+optimizer. PyTorch updates the params, the optimizer state and the table
+states in place.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import torch
 from torch import nn
 
 from recsys_examples_torch.data.hstu_batch import HSTUBatch
+from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbTableState
+from recsys_examples_torch.dynamicemb.sharded_collection import ShardedDynamicEmbedding
 from recsys_examples_torch.training.train_state import OptimizerFactory
 from recsys_examples_torch.utils.device import resolve_device
 
@@ -24,44 +33,78 @@ from recsys_examples_torch.utils.device import resolve_device
 class GRTrainState:
     model: nn.Module                    # the params, updated in place
     optimizer: torch.optim.Optimizer
+    sparse: Dict[str, DynamicEmbTableState] = dataclasses.field(default_factory=dict)
     step: int = 0
 
 
 class GRTrainer:
     """init / train_step / eval_step for a GR model on one device (CUDA
-    unless the caller passes `device="cpu"`)."""
+    unless the caller passes `device="cpu"`).
+
+    sparse_tables: feature name -> ShardedDynamicEmbedding for dynamic
+    (hash) tables; features not listed use the model's static tables.
+    """
 
     def __init__(self, model: nn.Module, tx: OptimizerFactory,
-                 sparse_tables: Optional[Dict] = None,
+                 sparse_tables: Optional[Dict[str, ShardedDynamicEmbedding]] = None,
                  device: Union[str, torch.device, None] = "cuda"):
-        if sparse_tables:
-            raise NotImplementedError("dynamic tables: slice 3")
         self.device = resolve_device(device)
         self.model = model
         self.tx = tx
+        self.sparse_tables = dict(sparse_tables or {})
+        for name, tbl in self.sparse_tables.items():
+            if tbl.device.type != self.device.type:
+                raise ValueError(f"table {name!r} is on {tbl.device}, the trainer "
+                                 f"on {self.device}")
 
     def init(self, generator: torch.Generator) -> GRTrainState:
         """Random params from `generator` (flax's init rules), on the
-        trainer's device, and a fresh optimizer."""
+        trainer's device, a fresh optimizer and empty tables."""
         model = self.model.to(self.device).init_weights(generator)
-        return GRTrainState(model=model, optimizer=self.tx(model.parameters()))
+        return GRTrainState(
+            model=model, optimizer=self.tx(model.parameters()),
+            sparse={name: tbl.init_state() for name, tbl in self.sparse_tables.items()})
 
     def train_step(self, state: GRTrainState, batch: HSTUBatch,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[GRTrainState, Dict[str, torch.Tensor]]:
-        """One fwd/bwd and optimizer step. `generator` supplies the dropout
-        bits (needed when the config has dropout). The loss stays on the
-        device: nothing here waits for the card."""
+        """One step. `generator` supplies the dropout bits (needed when the
+        config has dropout). The metrics stay on the device. With dynamic
+        tables phase A reads one flag per table from the device (see
+        `dynamicemb/hashtable.py`); nothing else here waits for the card."""
         batch = batch.to(self.device)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, _ = state.model(batch, train=True, generator=generator)
+
+        # ---- phase A: sparse forward; the embeddings are autograd leaves
+        emb, residuals = {}, {}
+        for name, tbl in self.sparse_tables.items():
+            _, e, residuals[name] = tbl.forward(
+                state.sparse[name], batch.features[name].values, train=True)
+            emb[name] = e.requires_grad_()
+
+        # ---- phase B: dense fwd/bwd and the dense optimizer
+        loss, _ = state.model(batch, train=True, embeddings=emb or None,
+                              generator=generator)
         loss.backward()
         state.optimizer.step()
+
+        # ---- phase C: sparse backward (fused row optimizer)
+        for name, tbl in self.sparse_tables.items():
+            tbl.backward(state.sparse[name], residuals[name], emb[name].grad)
+
+        emb_overflow = sum((r.num_overflow.sum() for r in residuals.values()),
+                           torch.zeros((), dtype=torch.int32, device=self.device))
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss.detach(), "emb_overflow": emb_overflow}
 
     @torch.no_grad()
     def eval_step(self, state: GRTrainState, batch: HSTUBatch):
+        """Loss and aux on `batch`; the tables are read, nothing is inserted."""
+        batch = batch.to(self.device)
         state.model.eval()
-        return state.model(batch.to(self.device), train=False)
+        emb = {}
+        for name, tbl in self.sparse_tables.items():
+            _, emb[name], _ = tbl.forward(
+                state.sparse[name], batch.features[name].values, train=False)
+        return state.model(batch, train=False, embeddings=emb or None)

@@ -98,9 +98,8 @@ def _jagged_inputs(seed, ctx):
     return x, lens, nc, (np.array([1, 0, 2, 1], np.int32) if ctx else None)
 
 
-@pytest.mark.parametrize("learnable_out,ctx", [(False, False), (True, True)])
-def test_layer_matches_flax(learnable_out, ctx):
-    jcfg, tcfg = _configs(learnable_output_layernorm=learnable_out)
+def _layer_case(ctx, **cfg_kw):
+    jcfg, tcfg = _configs(**cfg_kw)
     x, lens, nc, cl = _jagged_inputs(0, ctx)
     mk = lambda v: make_jagged_data(
         v, jnp.asarray(lens), 14, num_candidates=jnp.asarray(nc), max_num_candidates=3,
@@ -118,6 +117,23 @@ def test_layer_matches_flax(learnable_out, ctx):
         contextual_seqlen=None if cl is None else torch.from_numpy(cl))
     _vjp_both(lambda p, ins: jlayer.apply({"params": p}, mk(ins[0])).values,
               lambda ins: (tlayer(tj(ins[0])).values, tlayer), params, [x], 2)
+    return tlayer
+
+
+@pytest.mark.parametrize("learnable_out,ctx", [(False, False), (True, True)])
+def test_layer_matches_flax(learnable_out, ctx):
+    _layer_case(ctx, learnable_output_layernorm=learnable_out)
+
+
+@pytest.mark.parametrize("causal,ctx", [(True, True), (False, False)])
+def test_layer_with_relative_bias_matches_flax(causal, ctx):
+    """use_relative_attention_bias: the layer's `relative_bias/rel_bias`
+    param crosses through convert.py both ways, and its gradient (drab
+    summed over the batch, then along the diagonals) matches flax's."""
+    tlayer = _layer_case(ctx, use_relative_attention_bias=True, is_causal=causal,
+                         relative_bias_num_buckets=8, relative_bias_max_distance=6)
+    assert tuple(tlayer.relative_bias.rel_bias.shape) == (8, 2)
+    assert "relative_bias" in convert.flax_params(tlayer.state_dict())
 
 
 def _embeddings(jb, seed):

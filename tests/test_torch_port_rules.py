@@ -91,8 +91,6 @@ def test_train_entry_points_default_to_cuda():
                          prediction_head_arch=(4, 1), num_tasks=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         GRTrainer(RankingGR(cfg, task), make_optimizer())
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        GRTrainer(RankingGR(cfg, task), make_optimizer(), {"item": object()}, "cpu")
     trainer = GRTrainer(RankingGR(cfg, task), make_optimizer(), device="cpu")
     state = trainer.init(torch.Generator().manual_seed(0))
     batch = random_hstu_batch(0, 2, 5, 10)
@@ -113,3 +111,48 @@ def test_train_entry_points_default_to_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         ha.hstu_attn_fwd_cuda(x.detach().bfloat16(), x.detach().bfloat16(),
                               x.detach().bfloat16(), so.int(), None, None, opts)
+    rab = torch.zeros(1, 1, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.hstu_attn_rab_fwd_cuda(x.detach().bfloat16(), x.detach().bfloat16(),
+                                  x.detach().bfloat16(), rab, so.int(), None, None, opts)
+    assert ha.hstu_attn_rab_fwd_cuda.launches == 0
+
+
+def test_dynamic_tables_default_to_cuda_and_refuse_a_mesh():
+    """The dynamic tables live on the card unless the caller says "cpu"; row
+    sharding over a mesh belongs to the distribution slice; a trainer and its
+    tables share one device."""
+    from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbeddingTable
+    from recsys_examples_torch.dynamicemb.dynamicemb_config import DynamicEmbTableOptions
+    from recsys_examples_torch.dynamicemb.hashtable import create_table_state
+    from recsys_examples_torch.dynamicemb.optimizer import SparseOptimizerArgs
+    from recsys_examples_torch.dynamicemb.sharded_collection import ShardedDynamicEmbedding
+    from recsys_examples_torch.models.ranking_gr import RankingGR
+    from recsys_examples_torch.modules.config import (
+        EmbeddingConfig, HSTUConfig, RankingConfig)
+    from recsys_examples_torch.training.train_state import make_optimizer
+    from recsys_examples_torch.training.trainer import GRTrainer
+
+    table = DynamicEmbeddingTable(
+        DynamicEmbTableOptions(embedding_dim=8, max_capacity=64, bucket_capacity=8),
+        SparseOptimizerArgs(optimizer="sgd"))
+    for mesh in (object(), "dp"):
+        with pytest.raises(NotImplementedError, match="distribution slice"):
+            ShardedDynamicEmbedding(table, mesh=mesh, device="cpu")
+    on_cpu = ShardedDynamicEmbedding(table, mesh=None, device="cpu")
+    state = on_cpu.init_state()
+    assert state.table.keys.device.type == state.step.device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedDynamicEmbedding(table)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        table.init_state()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_table_state(64, 8, 8)
+    cfg = HSTUConfig(hidden_size=8, num_layers=1, num_attention_heads=1,
+                     kv_channels=8, dtype=torch.float32)
+    task = RankingConfig((EmbeddingConfig(("action",), "action", 10, 8),),
+                         prediction_head_arch=(4, 1), num_tasks=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GRTrainer(RankingGR(cfg, task), make_optimizer(), {"item": on_cpu})

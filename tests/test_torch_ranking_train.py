@@ -1,9 +1,12 @@
 """HSTU ranking training: the port's RankingGR and GRTrainer against the JAX
 package's on bench.py's CPU shape (batch 4, history 64, 2 layers, hidden 64,
-2 heads x 32, embeddings 32, head (16, 8), five static tables), fp32, with
-the flax params carried over by `convert.py`. Loss and params agree within
-rtol 1e-4, atol 1e-5 (fp32 sums in another order; params where the gradient
-is above its noise floor)."""
+2 heads x 32, embeddings 32, head (16, 8)), fp32, with the flax params
+carried over by `convert.py`: with five static tables, with bench.py's two
+dynamic tables (`item`, `user_id`, capacity 1 << 12, rowwise_adagrad) and
+with the relative attention bias. Loss and params agree within rtol 1e-4,
+atol 1e-5 (fp32 sums in another order; params where the gradient is above
+its noise floor); the dynamic tables' keys, scores and counters bit for bit
+and their values within rtol 1e-5."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,12 @@ from flax import linen as nn
 
 from recsys_examples_torch import convert
 from recsys_examples_torch.data.hstu_batch import random_hstu_batch as t_batch
+from recsys_examples_torch.dynamicemb import batched_table as tbt
+from recsys_examples_torch.dynamicemb import dynamicemb_config as tdc
+from recsys_examples_torch.dynamicemb import optimizer as tdo
+from recsys_examples_torch.dynamicemb.sharded_collection import (
+    ShardedDynamicEmbedding as TSharded,
+)
 from recsys_examples_torch.models.ranking_gr import RankingGR as TRankingGR
 from recsys_examples_torch.modules import config as tc
 from recsys_examples_torch.training.train_state import make_optimizer as t_opt
@@ -21,6 +30,12 @@ from recsys_examples_torch.training.trainer import GRTrainer as TTrainer
 from recsys_examples_torch.utils.perf import hstu_flops_exact as t_flops
 from recsys_examples_tpu.data.hstu_batch import as_device_batch
 from recsys_examples_tpu.data.hstu_batch import random_hstu_batch as j_batch
+from recsys_examples_tpu.dynamicemb import batched_table as jbt
+from recsys_examples_tpu.dynamicemb import dynamicemb_config as jdc
+from recsys_examples_tpu.dynamicemb import optimizer as jdo
+from recsys_examples_tpu.dynamicemb.sharded_collection import (
+    ShardedDynamicEmbedding as JSharded,
+)
 from recsys_examples_tpu.models.ranking_gr import RankingGR as JRankingGR
 from recsys_examples_tpu.modules import config as jc
 from recsys_examples_tpu.training.train_state import make_optimizer as j_opt
@@ -34,8 +49,13 @@ B, HIST, E, TASKS = 4, 64, 32, 8
 CTX = {"user_id": 1000, "user_age": 100, "item_category_l1": 50}
 
 
-def _configs(pkg, **hstu_kw):
-    """(HSTUConfig, RankingConfig) of bench.py's CPU shape in `pkg`."""
+DYNAMIC = ("item", "user_id")
+
+
+def _configs(pkg, dynamic=False, **hstu_kw):
+    """(HSTUConfig, RankingConfig) of bench.py's CPU shape in `pkg`; with
+    `dynamic` the model keeps static tables for the three small features
+    only, as bench.py's."""
     jax_side = pkg is jc
     kw = dict(hidden_size=64, num_layers=2, num_attention_heads=2, kv_channels=32,
               hidden_dropout=0.0,
@@ -47,6 +67,8 @@ def _configs(pkg, **hstu_kw):
         kw["kernel_backend"] = jc.KernelBackend.JNP
     tables = (("item", 1000), ("user_id", 1000), ("action", 100),
               ("user_age", 100), ("item_category_l1", 50))
+    if dynamic:
+        tables = tuple(t for t in tables if t[0] not in DYNAMIC)
     task = pkg.RankingConfig(
         embedding_configs=tuple(pkg.EmbeddingConfig((n,), n, v, E) for n, v in tables),
         prediction_head_arch=(16, TASKS), num_tasks=TASKS)
@@ -59,16 +81,26 @@ def _batch(make, seed, **kw):
                 value_zipf={"item": 1.05, "user_id": 1.05}, **kw)
 
 
-def _init_both(seed=0, batch_kw=None):
+def _init_both(seed=0, batch_kw=None, **hstu_kw):
     batch_kw = batch_kw or {}
-    jmodel = JRankingGR(*_configs(jc))
+    jmodel = JRankingGR(*_configs(jc, **hstu_kw))
     jb = as_device_batch(_batch(j_batch, seed, **batch_kw))
     key = jax.random.PRNGKey(seed)
     params = nn.unbox(jax.jit(lambda b: jmodel.init(
         {"params": key, "dropout": key}, b, train=False))(jb)["params"])
-    tmodel = TRankingGR(*_configs(tc))
+    tmodel = TRankingGR(*_configs(tc, **hstu_kw))
     tmodel.load_state_dict(convert.dense_state_dict(params))
     return jmodel, params, tmodel
+
+
+def _sparse_tables(cfg, bt, opt, sharded, **kw):
+    """bench.py's two dynamic tables at its CPU size."""
+    mk = lambda: sharded(bt.DynamicEmbeddingTable(
+        cfg.DynamicEmbTableOptions(embedding_dim=E, max_capacity=1 << 12,
+                                   bucket_capacity=128),
+        opt.SparseOptimizerArgs(optimizer="rowwise_adagrad", learning_rate=0.01)),
+        mesh=None, **kw)
+    return {name: mk() for name in DYNAMIC}
 
 
 def _assert_params_close(tmodel, jparams, held, loose_atol):
@@ -134,6 +166,101 @@ def test_param_grads_match_jax():
                                    err_msg=jax.tree_util.keystr(path))
 
 
+def _three_adam_steps(jtr, jstate, jmodel, ttr, tstate, tmodel, lr):
+    """Three train steps and an eval step on both sides; returns the states."""
+    step = jax.jit(jtr.train_step)
+    sparse = bool(jtr.sparse_tables)
+
+    def loss_of(p, b, sp):
+        emb = {n: t.forward(sp[n], b.features[n].values, train=False)[1]
+               for n, t in jtr.sparse_tables.items()} if sparse else None
+        return jmodel.apply({"params": p}, b, train=True, embeddings=emb)[0]
+
+    grad = jax.jit(jax.grad(loss_of))
+    held = jax.tree_util.tree_map(lambda p: np.ones(p.shape, bool), jstate.params)
+    for s in range(3):
+        jb = as_device_batch(_batch(j_batch, s))
+        if sparse:      # the embeddings the step itself sees: after phase A
+            probe = {n: t.forward(jstate.sparse[n], jb.features[n].values, train=True)[0]
+                     for n, t in jtr.sparse_tables.items()}
+        else:
+            probe = {}
+        g = jax.tree_util.tree_map(np.asarray, grad(jstate.params, jb, probe))
+        held = jax.tree_util.tree_map(
+            lambda h, g: h & ((g == 0) | (np.abs(g) > GRAD_FLOOR * np.abs(g).max())),
+            held, g)
+        jstate, jm = step(jstate, _batch(j_batch, s), jax.random.PRNGKey(1))
+        tstate, tm = ttr.train_step(tstate, _batch(t_batch, s))
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), **TOL,
+                                   err_msg=f"step {s}")
+        assert int(tm["emb_overflow"]) == int(jm["emb_overflow"]) == 0
+    assert tstate.step == 3
+    _assert_params_close(tmodel, jstate.params, held, loose_atol=3 * lr)
+    want, _ = jax.jit(jtr.eval_step)(jstate, as_device_batch(_batch(j_batch, 3)))
+    got, _ = ttr.eval_step(tstate, _batch(t_batch, 3))
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    return jstate, tstate
+
+
+def test_three_steps_with_dynamic_tables_match_jax_trainer():
+    """bench.py's step on the CPU: `item` and `user_id` in dynamic tables
+    (phases A and C), the rest static. After three steps the tables' keys,
+    scores and counters are equal bit for bit (so every key sits in the same
+    slot) and their values and optimizer state within rtol 1e-5 of what the
+    gradients allow; nothing overflows; `eval_step` inserts nothing."""
+    lr = 1e-3
+    jmodel = JRankingGR(*_configs(jc, dynamic=True))
+    jtr = JTrainer(jmodel, j_opt(lr, "adam"), _sparse_tables(jdc, jbt, jdo, JSharded))
+    jstate = jax.jit(jtr.init)(jax.random.PRNGKey(0), as_device_batch(_batch(j_batch, 0)))
+    jstate = jstate.replace(params=nn.unbox(jstate.params))
+    jstate = jstate.replace(opt_state=jtr.tx.init(jstate.params))
+    tmodel = TRankingGR(*_configs(tc, dynamic=True))
+    ttr = TTrainer(tmodel, t_opt(lr, "adam"),
+                   _sparse_tables(tdc, tbt, tdo, TSharded, device="cpu"), device="cpu")
+    tstate = ttr.init(torch.Generator().manual_seed(0))
+    tmodel.load_state_dict(convert.dense_state_dict(jstate.params))
+    assert set(tstate.sparse) == set(DYNAMIC)
+    assert not any(n.startswith(("embeddings.item.", "embeddings.user_id."))
+                   for n in tmodel.state_dict())
+
+    jstate, tstate = _three_adam_steps(jtr, jstate, jmodel, ttr, tstate, tmodel, lr)
+    for name in DYNAMIC:
+        ts, js = tstate.sparse[name], jstate.sparse[name]
+        for f in ("keys", "scores", "inserted", "evicted", "overflowed"):
+            np.testing.assert_array_equal(getattr(ts.table, f).numpy(),
+                                          np.asarray(getattr(js.table, f)), err_msg=f)
+        np.testing.assert_array_equal(ts.step.numpy(), np.asarray(js.step))
+        assert int(ts.table.inserted) > 0 and int(ts.table.overflowed) == 0
+        np.testing.assert_allclose(ts.table.values.numpy(), np.asarray(js.table.values),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
+        np.testing.assert_allclose(ts.table.opt.numpy(), np.asarray(js.table.opt),
+                                   rtol=1e-5, atol=1e-12, err_msg=name)
+    # eval reads the tables and inserts nothing (checked by _three_adam_steps'
+    # eval step having run): the states are as the train steps left them
+    before = {n: convert.dynamic_table_to_numpy(s)["table"] for n, s in tstate.sparse.items()}
+    ttr.eval_step(tstate, _batch(t_batch, 5))
+    for n, s in tstate.sparse.items():
+        for f, a in convert.dynamic_table_to_numpy(s)["table"].items():
+            np.testing.assert_array_equal(a, before[n][f], err_msg=f"{n} {f}")
+
+
+def test_three_steps_with_relative_bias_match_jax_trainer():
+    """The same three steps with `use_relative_attention_bias`: each layer's
+    `relative_bias/rel_bias` trains through rab and drab."""
+    lr = 1e-3
+    kw = dict(use_relative_attention_bias=True, relative_bias_num_buckets=32,
+              relative_bias_max_distance=64)
+    jmodel, params, tmodel = _init_both(0, **kw)
+    assert "relative_bias" in params["hstu_block"]["layer_1"]
+    jtr = JTrainer(jmodel, j_opt(lr, "adam"))
+    jstate = GRTrainState(params=params, opt_state=jtr.tx.init(params), sparse={},
+                          step=jnp.zeros((), jnp.int32))
+    ttr = TTrainer(tmodel, t_opt(lr, "adam"), device="cpu")
+    tstate = ttr.init(torch.Generator().manual_seed(0))
+    tmodel.load_state_dict(convert.dense_state_dict(params))
+    _three_adam_steps(jtr, jstate, jmodel, ttr, tstate, tmodel, lr)
+
+
 def test_three_adam_steps_match_jax_trainer():
     """Adam at its defaults (eps 1e-8, as bench.py runs it). Where a gradient
     element lies at the fp32 noise floor, the two frameworks' sums in another
@@ -149,28 +276,10 @@ def test_three_adam_steps_match_jax_trainer():
     jtr = JTrainer(jmodel, j_opt(lr, "adam"))
     jstate = GRTrainState(params=params, opt_state=jtr.tx.init(params), sparse={},
                           step=jnp.zeros((), jnp.int32))
-    step = jax.jit(jtr.train_step)
-    grad = jax.jit(jax.grad(lambda p, b: jmodel.apply({"params": p}, b, train=True)[0]))
-    held = jax.tree_util.tree_map(lambda p: np.ones(p.shape, bool), params)
-
     ttr = TTrainer(tmodel, t_opt(lr, "adam"), device="cpu")
     tstate = ttr.init(torch.Generator().manual_seed(0))
     tmodel.load_state_dict(convert.dense_state_dict(params))
-    for s in range(3):
-        g = jax.tree_util.tree_map(
-            np.asarray, grad(jstate.params, as_device_batch(_batch(j_batch, s))))
-        held = jax.tree_util.tree_map(
-            lambda h, g: h & ((g == 0) | (np.abs(g) > GRAD_FLOOR * np.abs(g).max())),
-            held, g)
-        jstate, jm = step(jstate, _batch(j_batch, s), jax.random.PRNGKey(1))
-        tstate, tm = ttr.train_step(tstate, _batch(t_batch, s))
-        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), **TOL,
-                                   err_msg=f"step {s}")
-    assert tstate.step == 3
-    _assert_params_close(tmodel, jstate.params, held, loose_atol=3 * lr)
-    want, _ = jax.jit(jtr.eval_step)(jstate, as_device_batch(_batch(j_batch, 3)))
-    got, _ = ttr.eval_step(tstate, _batch(t_batch, 3))
-    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    _three_adam_steps(jtr, jstate, jmodel, ttr, tstate, tmodel, lr)
 
 
 def test_losses_match_jax():

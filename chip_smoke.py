@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100: build its CUDA kernels, hold
-each against its plain PyTorch version, run KV-cached HSTU ranking serving
-and the HSTU ranking train step (static tables; dynamic tables; dynamic
-tables and the relative attention bias) at full width through them, and
-print one JSON summary.
+each against its plain PyTorch version, run KV-cached HSTU ranking serving,
+the HSTU ranking train step (static tables; dynamic tables; dynamic tables
+and the relative attention bias), SID-GR beam-search serving and the two
+int8 kernel modes at full width through them, and print one JSON summary.
 
 Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
@@ -62,6 +62,35 @@ Phases (any failure exits non-zero):
              step, K4's times at the full-width shape beside K1-K3's, peak
              memory; (c) phase 6a's kernels-against-plain step and its
              faulted control once more with dynamic tables and the bias.
+ 10. beam    K7 (beam-decode attention) through `beam_decode_attn` against
+             its plain version, bf16 and fp32: the full-width decode step (B
+             16, W 200, H = Hkv = 8 x 128, S 1025, the context lengths of the
+             seed-0 SID batch, N 1..4 with random ancestry), GQA (Hkv 2), N 0,
+             W 1 and 7, D 64, context lengths 0, 1 and S, every batch row held
+             on its own scale; kernel, plain and bound ms, and for the record
+             `scaled_dot_product_attention` over the context keys alone.
+ 11. sid     `SIDGRModel` at benchmarks/benchmark_beam_decode.py's widths (4
+             hierarchies, codebook 256, hidden 1024, 8 layers, 8 x 128, ffn
+             4096, beam 200, bf16), `random_sid_batch(0, B, 256, 4, 256)`
+             for B 1 and 16: `generate_beam_decode` timed, K7 launched 24
+             times a call; at B 1 the no-KV `generate` as its oracle; the
+             same call through the plain attention against the kernels, each
+             K7 call of every decode step against the plain version on its
+             own inputs, and faulted controls (sm_scale x 1.02) that both
+             comparisons must catch; the benchmark's JSON line per B.
+ 12. sid_serve  benchmarks/benchmark_sid_serving.py's sidgr path (hidden 512,
+             8 layers, 4 x 128, ffn 1024, bf16, beam 64, ctx 512, batch 8):
+             the offline batch and per-request latency through
+             `GRContinuousScheduler`, then a dozen requests of mixed lengths
+             over `ServingConfig()`'s buckets with the prefix cache on; its
+             JSON line.
+ 13. quant   K6-int8 against its plain version at
+             benchmarks/benchmark_paged_kv.py's points (H 4 x 256, page 128,
+             8 new tokens, history 1024 and 3968, batch 1 and 8, with and
+             without targets) beside the bf16 kernel on the same pages; K5
+             against its plain version at phase 5's lengths and mask families
+             and at the full-width training shape, its error against the
+             bf16 forward, and its time beside K1's.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -108,7 +137,9 @@ def within(err, ref_scale):
 
 def ptxas_entries(report):
     """(kernel, registers, bytes spilled) of each entry in `-Xptxas -v`'s
-    report; a template instance reads like `dq_kernel<256, rab>`."""
+    report; a template instance `..N2tc9kernel_i8ILi128EE..` reads
+    `tc::kernel_i8<128>`, `..9dq_kernelILi256ELb1EE..` reads
+    `dq_kernel<256, rab>`."""
     import re
 
     out, entry, spill = [], None, 0
@@ -116,11 +147,12 @@ def ptxas_entries(report):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
-            t = re.search(r"([a-z_]+_kernel)ILi(\d+)ELb([01])E", entry)
+            t = re.search(r"(?:N\d+([a-z]+))?\d+([a-z_][a-z_0-9]*)ILi(\d+)E(?:Lb([01])E)?",
+                          entry)
             if t:
-                entry = f"{t.group(1)}<{t.group(2)}" + (", rab>" if t.group(3) == "1" else ">")
-            else:
-                entry = entry[-48:]
+                ns, name, dh, rab = t.groups()
+                entry = ((f"{ns}::" if ns else "") + f"{name}<{dh}"
+                         + (", rab>" if rab == "1" else ">"))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
@@ -129,6 +161,26 @@ def ptxas_entries(report):
             out.append((entry, int(m.group(1)), spill))
             entry = None
     return out
+
+
+# Most registers of any instance without the bias, per library, as built for
+# sm_90a by CUDA 12.8's nvcc (this script's own report); none of them spills.
+# K1-K3 keep what they had before the int8 and beam kernels were added.
+REGISTER_CEILING = {"hstu_attention": 242, "paged_hstu_attention": 128,
+                    "beam_decode_attention": 148}
+
+
+# ---------------------------------------------------------------- phase 1
+def phase_build():
+    from recsys_examples_torch.utils import cuda_build
+
+    info = cuda_build.build(list(REGISTER_CEILING))
+    for name, i in info.items():
+        log(f"phase1 build {name}: {i['seconds']:.1f} s")
+        for entry, regs, spill in ptxas_entries(i["ptxas"]):
+            log(f"  ptxas {entry}: {regs} registers, {spill} bytes spilled")
+            if "rab" not in entry and (regs > REGISTER_CEILING[name] or spill):
+                raise SystemExit(f"phase1: {entry} grew to {regs} registers, {spill} spilled")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1178,7 +1230,588 @@ def phase_full_step():
     rab_shape = main_shape_kernels(host0, with_rab=True, tag="phase9b")
     rab_shape["launches"], _ = phase_step(rab=True)
     phase_train_compare(dynamic_rab=True, tag="phase9c")
-    return launches_a, rab_shape
+    return launches_a, rab_shape, host0
+
+
+# ---------------------------------------------------------------- phase 10
+SID_WIDTHS = dict(num_hierarchies=4, codebook_size=256, hidden_size=1024, num_layers=8,
+                  num_heads=8, head_dim=128, ffn_hidden=4096, beam_width=200)
+SID_HISTORY_ITEMS = 256
+
+
+def beam_case(gen, B, W, H, Hkv, D, S, N, ctx_lens, dtype=torch.bfloat16):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    c = dict(q=r(B, W, H, D), k_ctx=r(B, S, Hkv, D), v_ctx=r(B, S, Hkv, D),
+             ctx_lens=torch.tensor(ctx_lens, dtype=torch.int32, device="cuda"),
+             k_beam=None, v_beam=None, ancestry=None)
+    if N:   # random, non-identity ancestry
+        c.update(k_beam=r(B, N, W, Hkv, D), v_beam=r(B, N, W, Hkv, D),
+                 ancestry=torch.randint(0, W, (B, N, W), generator=gen, device="cuda",
+                                        dtype=torch.int32))
+    return c
+
+
+def beam_work(c):
+    """Bytes the function must move (the valid context rows of K and V, q,
+    out, the beam K/V rows the ancestry reaches, the indices) and the FLOPs
+    of its (query, key) pairs, for this case's data."""
+    B, W, H, D = c["q"].shape
+    S, Hkv = c["k_ctx"].shape[1:3]
+    esz = c["q"].element_size()
+    ctx = int(c["ctx_lens"].clamp(0, S).sum().item())
+    nbytes = 2 * ctx * Hkv * D * esz + 2 * B * W * H * D * esz + B * 4
+    N = 0
+    if c["k_beam"] is not None:
+        N = c["k_beam"].shape[1]
+        slots = c["ancestry"].long() + W * torch.arange(B * N, device="cuda").reshape(B, N, 1)
+        nbytes += 2 * int(torch.unique(slots).numel()) * Hkv * D * esz + B * N * W * 4
+    flops = 4 * (ctx + B * N) * W * H * D
+    return nbytes, flops
+
+
+# K7's limits, held on every batch row by itself: the rows' context lengths
+# differ fifty-fold, and a long context's outputs are averages near 0.07
+# beside a short one's 1.5 to 3, so one scale for the whole tensor would
+# leave the long rows a tolerance as large as their values. Per row: the
+# largest error against rtol * max|ref row| + atol (bf16: the repo's kernel
+# pass rule), and the row's relative L2 error. The fp32 limits sit a decade
+# or two above the fp32 kernel's own readings (PERF.md section 6).
+BEAM_LIMITS = {
+    torch.bfloat16: dict(rtol=2e-2, atol=1e-3, rel_l2=8e-3),
+    torch.float32: dict(rtol=1e-4, atol=1e-5, rel_l2=1e-5),
+}
+
+
+def row_rel_l2(a, b):
+    """[B]: relative L2 distance of a from b on each batch row."""
+    a, b = a.float().flatten(1), b.float().flatten(1)
+    return (a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-30)
+
+
+def check_beam_case(name, c, iters=20, sdpa=False):
+    from recsys_examples_torch.ops import beam_decode_attention as bda
+
+    D = c["q"].shape[-1]
+    args = [c[k] for k in ("q", "k_ctx", "v_ctx", "ctx_lens", "k_beam", "v_beam", "ancestry")]
+    scale = D ** -0.5
+    got = bda.beam_decode_attn(*args, sm_scale=scale)
+    torch.cuda.synchronize()
+    want = bda.beam_decode_attn_ref(*args, sm_scale=scale)
+    lim = BEAM_LIMITS[c["q"].dtype]
+    row_err = (got.float() - want.float()).flatten(1).abs().amax(1)
+    row_tol = lim["rtol"] * want.float().flatten(1).abs().amax(1) + lim["atol"]
+    err = row_err.max().item()
+    worst = (row_err / row_tol).max().item()        # of its own tolerance
+    rel = row_rel_l2(got, want).max().item()
+    ok = worst < 1 and rel < lim["rel_l2"] and bool(torch.isfinite(got).all().item())
+    kernel_ms = cuda_time_ms(lambda: bda.beam_decode_attn(*args, sm_scale=scale), iters)
+    plain_ms = cuda_time_ms(lambda: bda.beam_decode_attn_ref(*args, sm_scale=scale), 3)
+    nbytes, flops = beam_work(c)
+    bf16 = c["q"].dtype == torch.bfloat16
+    bound_ms, bound_by = bound_of(nbytes, flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    N = 0 if c["k_beam"] is None else c["k_beam"].shape[1]
+    line = (f"phase10 {name}: q={tuple(c['q'].shape)} Hkv={c['k_ctx'].shape[2]} "
+            f"S={c['k_ctx'].shape[1]} N={N} {str(c['q'].dtype)[6:]} max_abs_err={err:.3e} "
+            f"worst row at {worst:.3f} of its tol ({lim['rtol']:g}*max|ref row|+{lim['atol']:g}) "
+            f"worst row rel L2 {rel:.3e} (limit {lim['rel_l2']:g}) kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    if sdpa:   # for the record: the context keys alone, no ancestry-gathered tail
+        import torch.nn.functional as F
+
+        q, k, v = (c[x].transpose(1, 2) for x in ("q", "k_ctx", "v_ctx"))
+        S = k.shape[2]
+        keep = (torch.arange(S, device="cuda")[None] < c["ctx_lens"][:, None])[:, None, None]
+        f = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, scale=scale, enable_gqa=q.shape[1] != k.shape[1])
+        line += f" sdpa_over_context_ms={cuda_time_ms(f, iters):.4f}"
+    log(line)
+    if not ok:
+        raise SystemExit(f"phase10 {name}: kernel disagrees with its plain version")
+    return dict(err=err, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_beam():
+    """K7 against its plain version over shapes, dtypes and edge cases."""
+    from recsys_examples_torch.data.sid_batch import random_sid_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    B, W, H, D = 16, SID_WIDTHS["beam_width"], SID_WIDTHS["num_heads"], SID_WIDTHS["head_dim"]
+    S = SID_HISTORY_ITEMS * 4 + 1
+    # the decode step of phase 11's B 16 call: history + BOS per batch row
+    lens = (random_sid_batch(SEED, B, SID_HISTORY_ITEMS, 4, 256).history_lengths + 1).tolist()
+    res = {}
+    for N in (1, 2, 3, 4):
+        res[f"full_n{N}"] = check_beam_case(
+            f"full_n{N}", beam_case(gen, B, W, H, H, D, S, N, lens), sdpa=N == 3)
+    res["full_n3_fp32"] = check_beam_case(
+        "full_n3_fp32", beam_case(gen, B, W, H, H, D, S, 3, lens, torch.float32), iters=5)
+    edge = [0, 1, S, 64, 65, 63, 700, 2]    # no key, one, all, around a chunk edge
+    small = {
+        "gqa_hkv2": (4, W, H, 2, D, S, 2, lens[:4]),
+        "gqa_hkv1_n0": (4, W, H, 1, D, S, 0, lens[:4]),
+        "n0": (4, W, H, H, D, S, 0, lens[4:8]),
+        "w1": (8, 1, H, H, D, S, 2, edge),
+        "w7": (8, 7, H, H, D, S, 3, edge),
+        "w65_n0_edges": (8, 65, 2, 2, D, S, 0, edge),
+        "d64": (3, 50, 4, 4, 64, 300, 2, [300, 1, 129]),
+        "d32_gqa": (3, 33, 4, 2, 32, 77, 1, [77, 0, 40]),
+    }
+    for name, (b, w, h, hkv, d, s, n, cl) in small.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = name + ("" if dtype == torch.bfloat16 else "_fp32")
+            res[tag] = check_beam_case(
+                tag, beam_case(gen, b, w, h, hkv, d, s, n, cl, dtype), iters=5)
+    # a row with no key at all is zero, in the kernel and in its plain version
+    from recsys_examples_torch.ops import beam_decode_attention as bda
+
+    c = beam_case(gen, 8, 65, 2, 2, D, S, 0, edge)
+    out = bda.beam_decode_attn(c["q"], c["k_ctx"], c["v_ctx"], c["ctx_lens"])
+    if out[0].any().item() or not out[1].any().item():
+        raise SystemExit("phase10: ctx_len 0 with N 0 must give zeros, and only there")
+    return res
+
+
+# ---------------------------------------------------------------- phase 11
+def sid_model(seed=SEED, **overrides):
+    from recsys_examples_torch.models.sid_gr import SIDGRConfig, SIDGRModel
+
+    cfg = SIDGRConfig(**{**SID_WIDTHS, **overrides}, dtype=torch.bfloat16)
+    model = SIDGRModel(cfg).init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    return model.eval()
+
+
+def host_ms(fn, iters):
+    """Median wall time of fn() ending in a synchronize, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def compare_beams(got, want, tol):
+    """Two (paths [B, W, H], scores [B, W]) results of one search. Returns
+    (largest rank-wise score difference, mean of it, beams whose path
+    differs, beams whose path differs although their score is further than
+    2 * tol from both neighbours')."""
+    (pa, sa), (pb, sb) = got, want
+    diff = (sa - sb).abs()
+    differ = (pa != pb).any(-1)
+    gap = (sb[:, :-1] - sb[:, 1:]).abs()
+    inf = torch.full_like(sb[:, :1], float("inf"))
+    clear = torch.minimum(torch.cat([inf, gap], 1), torch.cat([gap, inf], 1)) > 2 * tol
+    return (diff.max().item(), diff.mean().item(), int(differ.sum().item()),
+            int((differ & clear).sum().item()))
+
+
+def traced_attention(run, keep, scale=1.0, replay=False, **kw):
+    """run(**kw) with the decoder's beam-decode attention wrapped: the
+    outputs of its first `keep` calls are kept, and `scale` other than 1
+    makes a faulted control (attention scores too large). With `replay`
+    every call's own inputs (this run's q, KV and ancestry, whatever beams it
+    holds by then) also go through the plain version at the sound scale, and
+    the worst batch row's relative L2 distance of each call is kept instead.
+    Returns (run's result, what was kept)."""
+    from recsys_examples_torch.modules import transformer
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn_ref
+
+    saved, outs = transformer.beam_decode_attn, []
+
+    def wrapped(*a, sm_scale, backend):
+        out = saved(*a, sm_scale=sm_scale * scale, backend=backend)
+        if replay:
+            outs.append(row_rel_l2(out, beam_decode_attn_ref(*a, sm_scale=sm_scale)).max().item())
+        elif len(outs) < keep:
+            outs.append(out)
+        return out
+
+    transformer.beam_decode_attn = wrapped
+    try:
+        return run(**kw), outs
+    finally:
+        transformer.beam_decode_attn = saved
+
+
+# Phase 11's limits. "attention": relative L2 between two runs' attention
+# outputs in the first decode step (there both runs hold the same beams),
+# and between each K7 call of any step and the plain version on that call's
+# inputs, worst layer; it sits between the sound reading and the faulted
+# control's (H100: 2.3e-3 and 2.3e-2 at least, both in layer 0; the deeper
+# layers' attention is flatter and answers the fault with 1e-3 to 6e-3).
+# "scores": rank-wise difference of two searches' final scores (sums of 4
+# log-probs, of order -10): the top 200 of 256^4 candidates lie closer
+# together than bf16 noise, so ranks swap and only a gross fault shows here
+# (PERF.md section 6).
+SID_LIMITS = {"attention": 8e-3, "scores": 1e-1}
+
+
+def phase_sid():
+    from recsys_examples_torch.data.sid_batch import random_sid_batch
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+
+    torch.cuda.reset_peak_memory_stats()
+    model = sid_model()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    L, H, W = cfg.num_layers, cfg.num_hierarchies, cfg.beam_width
+    log(f"phase11 config: {H} hierarchies, codebook {cfg.codebook_size}, hidden "
+        f"{cfg.hidden_size}, {L} layers, {cfg.num_heads}x{cfg.head_dim}, ffn "
+        f"{cfg.ffn_hidden}, beam {W}, bf16, {n_params / 1e6:.1f}M params")
+    expected = (H - 1) * L
+    res = {}
+    for B in (1, 16):
+        batch = random_sid_batch(SEED, B, SID_HISTORY_ITEMS, H, cfg.codebook_size).to("cuda")
+        run = lambda **kw: model.generate_beam_decode(batch, **kw)
+        run()                                   # warm-up: cuBLAS, allocator
+        beam_decode_attn.launches = 0
+        paths, scores = run()
+        torch.cuda.synchronize()
+        launches = beam_decode_attn.launches
+        if launches != expected:
+            raise SystemExit(f"phase11 B={B}: K7 launched {launches} times, expected {expected}")
+        if paths.shape != (B, W, H) or not bool(torch.isfinite(scores).all()) or \
+                bool((paths < 0).any()) or bool((paths >= cfg.codebook_size).any()) or \
+                bool((scores[:, :-1] < scores[:, 1:]).any()):
+            raise SystemExit(f"phase11 B={B}: bad paths or scores")
+        kv_ms = host_ms(run, 5)
+        log(f"phase11 B={B}: history tokens {batch.history_lengths.tolist()} "
+            f"generate_beam_decode_ms={kv_ms:.2f} (median of 5) K7 launches per call="
+            f"{launches} best score {scores[0, 0].item():.4f} worst {scores[0, -1].item():.4f}")
+        profile_call(run, f"phase11 B={B} profile of one generate_beam_decode", top=12, groups={
+            "K7": ("tc::kernel", "scalar::kernel"),
+            "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+            "sort": ("sort", "radix"),
+        })
+
+        # the kernels against the plain attention on the card, and a faulted
+        # control: the plain attention with scores 2% too large
+        kernels, outs_k = traced_attention(run, L)
+        plain, outs_p = traced_attention(run, L, attn_backend="plain")
+        faulted, outs_f = traced_attention(run, L, scale=1.02, attn_backend="plain")
+        sound_a = [rel_l2(k, p) for k, p in zip(outs_k, outs_p)]
+        control_a = [rel_l2(f, p) for f, p in zip(outs_f, outs_p)]
+        sound = compare_beams(kernels, plain, SID_LIMITS["scores"])
+        control = compare_beams(faulted, plain, SID_LIMITS["scores"])
+        show = lambda r: (f"score diff max {r[0]:.3e} mean {r[1]:.3e}, {r[2]} of {B * W} "
+                          f"beams differ, {r[3]} of them clear of their neighbours")
+        fmt = lambda xs: "[" + ", ".join(f"{x:.2e}" for x in xs) + "]"
+        log(f"phase11 B={B} kernels against plain: step-1 attention rel L2 by layer "
+            f"{fmt(sound_a)} (limit {SID_LIMITS['attention']:g}); {show(sound)} "
+            f"(limit {SID_LIMITS['scores']:g})")
+        log(f"phase11 B={B} control, plain with sm_scale x 1.02 against plain: "
+            f"{fmt(control_a)}; {show(control)}")
+        if max(sound_a) >= SID_LIMITS["attention"] or sound[0] >= SID_LIMITS["scores"] \
+                or sound[3]:
+            raise SystemExit(f"phase11 B={B}: the search through K7 disagrees with the plain one")
+        if max(control_a) < SID_LIMITS["attention"]:
+            raise SystemExit(f"phase11 B={B}: the faulted control passes the comparison")
+        del outs_k, outs_p, outs_f, kernels, plain, faulted
+
+        # every decode step by itself (N = 1, 2, 3 tail keys, the later ones
+        # under the search's own re-rooted ancestry): each K7 call of a run
+        # against the plain version on that call's inputs, worst batch row,
+        # and the control: K7 with scores 2% too large against the same
+        _, sound_r = traced_attention(run, 0, replay=True)
+        _, control_r = traced_attention(run, 0, scale=1.02, replay=True)
+        by_step = lambda xs: [xs[i * L:(i + 1) * L] for i in range(H - 1)]
+        for h, (sr, cr) in enumerate(zip(by_step(sound_r), by_step(control_r)), 1):
+            log(f"phase11 B={B} step {h} (N={h}) K7 against plain on its own inputs, worst row "
+                f"rel L2 by layer {fmt(sr)} (limit {SID_LIMITS['attention']:g}); control "
+                f"{fmt(cr)}")
+            if len(sr) != L or max(sr) >= SID_LIMITS["attention"]:
+                raise SystemExit(f"phase11 B={B}: K7 disagrees with its plain version in step {h}")
+            if max(cr) < SID_LIMITS["attention"]:
+                raise SystemExit(f"phase11 B={B}: the faulted control passes in step {h}")
+
+        base_ms = None
+        if B == 1:
+            # the no-KV oracle. Not at B 16: its dense scores would be
+            # [3200, 8, 1028, 1028] fp32, 108 GB a layer
+            base = model.generate(batch)
+            r = compare_beams((paths, scores), base, SID_LIMITS["scores"])
+            log(f"phase11 B=1 generate_beam_decode against generate: {show(r)} "
+                f"(limit {SID_LIMITS['scores']:g})")
+            if r[0] >= SID_LIMITS["scores"] or r[3]:
+                raise SystemExit("phase11: the cached search disagrees with the baseline")
+            base_ms = host_ms(lambda: model.generate(batch), 2)
+            del base
+        print(json.dumps({
+            "bench": "sid_beam_decode", "batch": B, "history_items": SID_HISTORY_ITEMS,
+            "beam": W, "generate_ms": None if base_ms is None else round(base_ms, 1),
+            "beam_decode_ms": round(kv_ms, 1),
+            "speedup": None if base_ms is None else round(base_ms / kv_ms, 2),
+            "backend": "cuda"}), flush=True)
+        res[B] = dict(launches=launches, beam_decode_ms=kv_ms, generate_ms=base_ms)
+        torch.cuda.empty_cache()
+    log(f"phase11 peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------- phase 12
+def phase_sid_serve():
+    from recsys_examples_torch.inference.sid_serving.engine import (
+        GRServingEngine, ServingConfig)
+    from recsys_examples_torch.inference.sid_serving.scheduler import GRContinuousScheduler
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+
+    beam, ctx, batch, iters, H = 64, 512, 8, 20, 4
+    model = sid_model(SEED + 12, hidden_size=512, num_heads=4, ffn_hidden=1024,
+                      beam_width=beam)
+    eng = GRServingEngine(model, ServingConfig(
+        beam_width=beam, ctx_buckets=(ctx,), batch_buckets=(batch,)))
+    rng = np.random.default_rng(SEED)
+
+    def mk_ctx(lo=ctx // 2, hi=ctx):
+        n = int(rng.integers(lo, hi))
+        n -= n % H
+        return rng.integers(0, 256, size=(max(n, H),)).astype(np.int32)
+
+    # offline: batched generate throughput
+    ctxs = [mk_ctx() for _ in range(batch)]
+    eng.generate(ctxs)
+    beam_decode_attn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        paths, scores = eng.generate(ctxs)
+    dt = (time.perf_counter() - t0) / iters
+    launches = beam_decode_attn.launches
+    if paths.shape != (batch, beam, H) or not np.isfinite(scores).all():
+        raise SystemExit("phase12: bad offline answer")
+    if launches != iters * (H - 1) * model.config.num_layers:
+        raise SystemExit(f"phase12: K7 launched {launches} times over {iters} batches")
+    # online: per-request latency through the scheduler
+    sched = GRContinuousScheduler(eng, max_batch=batch)
+    lat = []
+    for _ in range(iters):
+        rids = [sched.submit(mk_ctx(), top_k=10) for _ in range(batch)]
+        sched.run_until_empty()
+        for rid in rids:
+            r = sched.get_result(rid)
+            if r is None or len(r.get("sids", ())) != 10:
+                raise SystemExit(f"phase12: request not answered: {r}")
+            lat.append(r["latency_ms"])
+    lat = np.asarray(lat)
+    print(json.dumps({
+        "metric": "sid_serving", "backbone": "sidgr", "beam": beam, "ctx_bucket": ctx,
+        "batch": batch, "offline_batch_ms": round(dt * 1e3, 2),
+        "offline_req_per_s": round(batch / dt, 2),
+        "online_median_ms": round(float(np.median(lat)), 2),
+        "online_p99_ms": round(float(np.percentile(lat, 99)), 2),
+        "backend": "cuda"}), flush=True)
+    profile_call(lambda: eng.generate(ctxs), "phase12 profile of one offline batch", top=8)
+
+    # a dozen requests of mixed lengths over the default buckets, prefix cache on
+    eng2 = GRServingEngine(model, ServingConfig())
+    sched2 = GRContinuousScheduler(eng2, max_batch=8, prefix_cache_size=64)
+    first = [mk_ctx(lo, hi) for lo, hi in
+             ((4, 60), (8, 64), (70, 250), (100, 256), (300, 1000), (600, 1024),
+              (4, 64), (200, 256), (900, 1024))]
+    beam_decode_attn.launches = 0
+    rids = [sched2.submit(c, top_k=5) for c in first]
+    sched2.run_until_empty()
+    answers = [sched2.get_result(r) for r in rids]
+    repeats = [0, 4, 8]
+    again = [sched2.get_result(sched2.submit(first[i], top_k=5)) for i in repeats]
+    st = sched2.status()
+    log(f"phase12 mixed: {len(first)} requests in {int(st['batches'])} batches over "
+        f"{st['compiled_buckets']} buckets, {len(again)} repeated, prefix cache hits "
+        f"{int(st['prefix_cache_hits'])}, K7 launches {beam_decode_attn.launches}")
+    if any(a is None or len(a.get("sids", ())) != 5 for a in answers + again):
+        raise SystemExit("phase12: a request of the mixed wave was not answered")
+    if any(not a.get("cached") or a["sids"] != answers[i]["sids"]
+           for a, i in zip(again, repeats)):
+        raise SystemExit("phase12: a repeated request did not return the first answer")
+    if st["completed"] != len(first) or st["queue_depth"] or not beam_decode_attn.launches:
+        raise SystemExit("phase12: not every request went through the engine")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 13
+def phase_quant_paged(attn):
+    """K6-int8 at benchmark_paged_kv.py's points. Returns the result of the
+    largest point (history 3968, batch 8) and the launches of the drive."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    H, dh, pg, S = 4, 256, 128, 8
+    points = [(hist, B, tgt) for hist in (1024, 3968) for B in (1, 8) for tgt in (False, True)]
+    cases = {}
+    for hist, B, tgt in points:
+        maxp = (hist + pg - 1) // pg
+        c = attention_case(gen, B, S, H, dh, pg, maxp, [hist] * B, [S] * B,
+                           [S // 2] * B if tgt else None)
+        c["int8"] = attn.quantize_kv_pages(c["k_pages"], c["v_pages"])
+        c["scaling"] = float(hist + S)
+        cases[(hist, B, tgt)] = c
+
+    def call(c, quantized, fn=None):
+        k8, v8, ks, vs = c["int8"]
+        args = [c[k] for k in ("q", "k_pages", "v_pages", "page_table", "cached_len",
+                               "new_k", "new_v", "new_lens", "num_targets")]
+        if quantized:
+            args[1], args[2] = k8, v8
+            return attn.paged_hstu_delta_attention(*args, dh ** -0.5, c["scaling"],
+                                                   k_scales=ks, v_scales=vs)
+        return (fn or attn.paged_hstu_delta_attention)(*args, dh ** -0.5, c["scaling"])
+
+    # the drive: every point once through the public entry
+    attn.paged_hstu_delta_attention_int8.launches = 0
+    outs = {k: call(c, True) for k, c in cases.items()}
+    torch.cuda.synchronize()
+    launches = attn.paged_hstu_delta_attention_int8.launches
+    if launches != len(points):
+        raise SystemExit(f"phase13: the int8 paged kernel launched {launches} times")
+    res = {}
+    for key, c in cases.items():
+        hist, B, tgt = key
+        k8, v8, ks, vs = c["int8"]
+        deq = dict(c, k_pages=k8.float() * ks[..., None], v_pages=v8.float() * vs[..., None])
+        want = call(deq, False, attn.paged_hstu_delta_attention_ref)
+        got = outs[key]
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        bf16_out = call(c, False)
+        err_bf16 = (got.float() - bf16_out.float()).abs().max().item()
+        t = [cuda_time_ms(lambda: call(c, False), 20), cuda_time_ms(lambda: call(c, True), 20),
+             cuda_time_ms(lambda: call(c, True), 20), cuda_time_ms(lambda: call(c, False), 20)]
+        ms, ms_bf16 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        plain_ms = cuda_time_ms(lambda: call(deq, False, attn.paged_hstu_delta_attention_ref), 3)
+        nbytes, flops = attention_work(c)
+        tok = H * dh
+        # int8 pages: one byte an element and two fp32 scales a (token, head)
+        nbytes += -2 * hist * B * tok * 2 + 2 * hist * B * (tok + 4 * H)
+        bound_ms, bound_by = bound_of(nbytes, flops)
+        log(f"phase13 paged_int8 hist={hist} B={B} targets={tgt}: max_abs_err={err:.3e} "
+            f"tol={2e-2 * ref + 1e-3:.3e} (2e-2*max|ref|+1e-3) against the bf16 kernel on the "
+            f"unquantized pages {err_bf16:.3e}; kernel_ms={ms:.4f} bf16_kernel_ms={ms_bf16:.4f} "
+            f"(in turns) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        if not (within(err, ref) and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"phase13: the int8 paged kernel disagrees at {key}")
+        res[key] = dict(err=err, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, bf16_kernel_ms=ms_bf16)
+    # ragged cache, padded rows, targets, a -1 page and tail past a chunk edge
+    c = attention_case(gen, 4, 40, 2, 64, 16, 6, [0, 37, 80, 96], [40, 13, 39, 33],
+                       [3, 0, 39, 7])
+    c["page_table"][1, 1] = -1
+    c["int8"] = attn.quantize_kv_pages(c["k_pages"], c["v_pages"])
+    k8, v8, ks, vs = c["int8"]
+    args = [c[k] for k in ("q", "k_pages", "v_pages", "page_table", "cached_len", "new_k",
+                           "new_v", "new_lens", "num_targets")]
+    got = attn.paged_hstu_delta_attention(*args[:1], k8, v8, *args[3:], 0.125, 136.0,
+                                          k_scales=ks, v_scales=vs)
+    want = attn.paged_hstu_delta_attention_ref(
+        args[0], k8.float() * ks[..., None], v8.float() * vs[..., None], *args[3:], 0.125, 136.0)
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    log(f"phase13 paged_int8 odd_dh64: max_abs_err={err:.3e} tol={2e-2 * ref + 1e-3:.3e}")
+    if not within(err, ref) or bool(got[1, 13:].any()):
+        raise SystemExit("phase13: the int8 paged kernel disagrees at the odd shape")
+    res["odd"] = dict(err=err)
+    return res, launches
+
+
+def phase_quant_fwd(main_batch):
+    """K5 at phase 5's lengths and mask families and at the full-width
+    training shape, against its plain version, the bf16 forward and K1."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.ops.hstu_attention_ref import (
+        hstu_mha_int8_reference, hstu_mha_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    i32 = lambda x: None if x is None else torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    def quantized(lengths, H, dh):
+        q, k, v, _, offsets = attention_operands(gen, lengths, H, dh, pad=0)
+        return (q, k, v), [ha.quantize_per_tensor(x) for x in (q, k, v)], offsets
+
+    def check(tag, got, want, total):
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        log(f"phase13 fwd_int8 {tag}: max_abs_err={err:.3e} max|ref|={ref:.3e} "
+            f"tol={2e-2 * ref + 1e-3:.3e} (2e-2*max|ref|+1e-3)")
+        if not within(err, ref) or bool(got[total:].any()) or got.dtype != torch.bfloat16:
+            raise SystemExit(f"phase13: the int8 forward disagrees at {tag}")
+        return err
+
+    lengths = [2000, 37, 1024, 129, 0, 1]
+    ctx, tgt = [3, 3, 3, 3, 0, 1], [64, 4, 10, 7, 0, 0]
+    cases = {
+        "causal": (dict(), None, None),
+        "ctx_tgt_group2": (dict(target_group_size=2), ctx, tgt),
+        "window64": (dict(max_attn_len=64), None, None),
+        "window64_minfull": (dict(max_attn_len=64, min_full_attn_seq_len=128), None, tgt),
+        "noncausal": (dict(causal=False), None, None),
+    }
+    errs = []
+    for name, (kw, c, t) in cases.items():
+        _, ((q8, sq), (k8, sk), (v8, sv)), offsets = quantized(lengths, 4, 256)
+        mask = dict(num_contextuals=i32(c), num_targets=i32(t), **kw)
+        got = ha.hstu_attn_varlen_quantized_calibrated(
+            q8, k8, v8, sq, sk, sv, offsets, 2048, alpha=1 / 16, **mask)
+        want = hstu_mha_int8_reference(2048, 1 / 16, q8, k8, v8, sq, sk, sv, offsets, **mask)
+        errs.append(check(name, got, want, sum(lengths)))
+    _, ((q8, sq), (k8, sk), (v8, sv)), offsets = quantized([77, 0, 300, 5], 2, 64)
+    mask = dict(num_contextuals=i32([2, 0, 1, 0]), num_targets=i32([9, 0, 31, 2]),
+                target_group_size=3)
+    errs.append(check("odd_h2_dh64", ha.hstu_attn_varlen_quantized_calibrated(
+        q8, k8, v8, sq, sk, sv, offsets, 320, alpha=0.125, **mask),
+        hstu_mha_int8_reference(320, 0.125, q8, k8, v8, sq, sk, sv, offsets, **mask), 382))
+
+    # the full-width training shape (phase 6b's): the drive, then the checks
+    lengths = [int(n) for n in seqlens_of(main_batch)]
+    N, H, dh = 2 * 4096 + N_CTX, 4, 256
+    (q, k, v), ((q8, sq), (k8, sk), (v8, sv)), offsets = quantized(lengths, H, dh)
+    nc = torch.full((len(lengths),), N_CTX, dtype=torch.int32, device="cuda")
+    alpha = dh ** -0.5
+    ha.hstu_attn_fwd_int8_cuda.launches = 0
+    got = ha.hstu_attn_varlen_quantized_calibrated(
+        q8, k8, v8, sq, sk, sv, offsets, N, num_contextuals=nc, alpha=alpha)
+    torch.cuda.synchronize()
+    launches = ha.hstu_attn_fwd_int8_cuda.launches
+    if launches != 1:
+        raise SystemExit(f"phase13: the int8 forward launched {launches} times")
+    opts = ha.AttnOptions(max_seqlen=N, alpha=alpha, scaling_seqlen=N)
+    o32 = offsets.to(torch.int32)
+    k1 = lambda: ha.hstu_attn_fwd_cuda(q, k, v, o32, nc, None, opts)
+    k5 = lambda: ha.hstu_attn_varlen_quantized_calibrated(
+        q8, k8, v8, sq, sk, sv, offsets, N, num_contextuals=nc, alpha=alpha)
+    t = [cuda_time_ms(k1, 3), cuda_time_ms(k5, 3), cuda_time_ms(k5, 3), cuda_time_ms(k1, 3)]
+    ms, ms_k1 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    full = k1()
+    err = ref = quant_err = full_ref = plain_ms = 0.0
+    for b, n in enumerate(lengths):     # the plain version, sequence by sequence
+        s = slice(int(offsets[b]), int(offsets[b + 1]))
+        one = torch.tensor([0, n], device="cuda")
+        f = lambda: hstu_mha_int8_reference(
+            n, alpha, q8[s], k8[s], v8[s], sq, sk, sv, one, scaling_seqlen=N,
+            num_contextuals=nc[:1])
+        plain_ms += cuda_time_ms(f, 1)
+        want = f()
+        err = max(err, (got[s].float() - want.float()).abs().max().item())
+        ref = max(ref, want.float().abs().max().item())
+        quant_err = max(quant_err, (got[s].float() - full[s].float()).abs().max().item())
+        full_ref = max(full_ref, full[s].float().abs().max().item())
+    work = jagged_attention_work(lengths, H, dh, opts, ctx=[N_CTX] * len(lengths))
+    T = sum(lengths)
+    nbytes = 3 * T * H * dh + T * H * dh * 2      # int8 q, k, v read; bf16 out written
+    bound_ms, bound_by = bound_of(nbytes, work["fwd"][1])
+    log(f"phase13 fwd_int8 main-shape: T={T} max_abs_err={err:.3e} max|ref|={ref:.3e} "
+        f"tol={2e-2 * ref + 1e-3:.3e}; against the bf16 forward on the unquantized operands "
+        f"{quant_err:.3e} of max {full_ref:.3e}; kernel_ms={ms:.4f} K1_ms={ms_k1:.4f} (in turns) "
+        f"plain_ms(per sequence)={plain_ms:.2f} bound_ms={bound_ms:.4f} ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {work['fwd'][1] / 1e9:.2f} GFLOP)")
+    if not within(err, ref):
+        raise SystemExit("phase13: the int8 forward disagrees at the main shape")
+    return dict(err=max(errs + [err]), kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, launches=launches, k1_ms=ms_k1)
 
 
 def main():
@@ -1186,7 +1819,6 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from recsys_examples_torch.ops import paged_hstu_attention as attn
-    from recsys_examples_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1194,15 +1826,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} numpy {np.__version__} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    info = cuda_build.build(["paged_hstu_attention", "hstu_attention"])
-    for name, i in info.items():
-        log(f"phase1 build {name}: {i['seconds']:.1f} s")
-        for entry, regs, spill in ptxas_entries(i["ptxas"]):
-            log(f"  ptxas {entry}: {regs} registers, {spill} bytes spilled")
-            # K1-K3 (the instances without the bias) stay as they were: at
-            # most 242 registers, nothing spilled
-            if name == "hstu_attention" and "rab" not in entry and (regs > 242 or spill):
-                raise SystemExit(f"phase1: {entry} grew to {regs} registers, {spill} spilled")
+    phase_build()
 
     res = {"paged": phase_kernel(attn)}
     runner, res["serve"] = phase_main(attn)
@@ -1213,7 +1837,12 @@ def main():
     res["train"] = phase_train()
     phase_tables()
     res["rab"] = phase_rab()
-    launches_9a, res["rab_shape"] = phase_full_step()
+    launches_9a, res["rab_shape"], host0 = phase_full_step()
+    res["beam"] = phase_beam()
+    res["sid"] = phase_sid()
+    phase_sid_serve()
+    res["paged_int8"], paged_int8_launches = phase_quant_paged(attn)
+    res["fwd_int8"] = phase_quant_fwd(host0)
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -1267,6 +1896,48 @@ def main():
             "bound_by": shape["bound"][kk][1],
             "library_ms": None,
         })
+    step = res["beam"]["full_n3"]      # the last decode step of phase 11's B 16 call
+    kernels.append({
+        "name": "beam_decode_attn",
+        "route": "cuda",
+        "source": "recsys_examples_torch/csrc/beam_decode_attention.cu",
+        "replaces": "recsys_examples_tpu/ops/pallas/beam_decode_attention.py:235",
+        "launches": res["sid"][16]["launches"],     # one generate_beam_decode, B 16
+        "max_abs_err": max(r["err"] for r in res["beam"].values()),
+        "ms": step["kernel_ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"],
+        "library_ms": None,
+    })
+    fwd8 = res["fwd_int8"]
+    kernels.append({
+        "name": "hstu_attn_fwd_int8",
+        "route": "cuda",
+        "source": "recsys_examples_torch/csrc/hstu_attention.cu",
+        "replaces": "recsys_examples_tpu/ops/pallas/hstu_attention.py:1541",
+        "launches": fwd8["launches"],               # the full-width call, phase 13
+        "max_abs_err": fwd8["err"],
+        "ms": fwd8["kernel_ms"],
+        "plain_ms": fwd8["plain_ms"],
+        "bound_ms": fwd8["bound_ms"],
+        "bound_by": fwd8["bound_by"],
+        "library_ms": None,
+    })
+    paged8 = res["paged_int8"][(3968, 8, False)]
+    kernels.append({
+        "name": "paged_hstu_delta_attention_int8",
+        "route": "cuda",
+        "source": "recsys_examples_torch/csrc/paged_hstu_attention.cu",
+        "replaces": "recsys_examples_tpu/ops/pallas/paged_hstu_attention.py:270",
+        "launches": paged_int8_launches,            # the eight points, phase 13
+        "max_abs_err": max(r["err"] for r in res["paged_int8"].values()),
+        "ms": paged8["kernel_ms"],
+        "plain_ms": paged8["plain_ms"],
+        "bound_ms": paged8["bound_ms"],
+        "bound_by": paged8["bound_by"],
+        "library_ms": None,
+    })
     log(f"phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

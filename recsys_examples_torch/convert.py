@@ -3,7 +3,9 @@
 All inputs are numpy arrays (or anything `np.asarray` takes), so nothing
 here needs JAX:
   - `dense_state_dict` / `flax_params`: a flax param tree (an
-    `InferenceDenseModule`'s or a whole `RankingGR`'s) -> the port's
+    `InferenceDenseModule`'s, a whole `RankingGR`'s or a `SIDGRModel`'s:
+    `codebook_i/embedding`, `bos_token`, `decoder/layer_i/{ln1,ln2,attn/
+    {q,k,v,proj},fc1,fc2}`, `decoder/final_ln`, `lm_head_i`) -> the port's
     `state_dict()`, and back to numpy. flax `Dense` kernels are [in, out]
     and become `nn.Linear.weight` [out, in]. A layer's
     `relative_bias/rel_bias` crosses like any other param.

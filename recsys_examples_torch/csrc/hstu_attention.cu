@@ -40,6 +40,18 @@
 // rows) that is 167 MB, and operations bound all three kernels as they do
 // K1-K3.
 //
+// K5 replaces `hstu_attn_varlen_quantized_calibrated` of the same file (the
+// `quantized` branch of `_fwd_kernel`): K1 on int8 q, k [T, H, D] and v
+// [T, H, V] with three per-tensor fp32 scales. As on the TPU the int8 values
+// are widened to bf16 (exact) and the products run in bf16 with fp32 sums:
+//   S = (alpha q_scale k_scale) q8 k8^T,  P = silu(S) / scaling * mask,
+//   out = bf16(v_scale . P(bf16) v8)
+// The caller folds the two scales into alpha. `fwd_i8_kernel` moves half of
+// K1's bytes: int8 tiles stream through the cp.async ring (rows of D bytes,
+// 16-byte vectors, row stride D + 16) and each arrived tile is widened into
+// one bf16 compute tile of K1's layout, so K1's fragment code runs on it
+// unchanged. Forward only. Operations bound it like K1: its bound is K1's.
+//
 // What bounds it on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s): operations.
 // At a full-width training batch (32 sequences of 3 + 2 x Zipf(1.2) history
 // tokens: 22,458 tokens, 4 heads of 256, chip_smoke.py's phase 6) the
@@ -85,6 +97,7 @@ using sm90::ldmatrix_x4;
 using sm90::ldmatrix_x4_trans;
 using sm90::mma;
 using sm90::pack_bf16;
+using sm90::widen16;
 
 constexpr int NT = 256;   // 8 warps: row block warp % 4, half warp / 4
 constexpr int BT = 64;    // rows of the CTA's own tile (4 row blocks of 16)
@@ -366,6 +379,114 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<DH>(out + base, ld, o, m0, s.n, rb, hf, lane);
 }
 
+// ------------------------------------------------------------ K5: int8 forward
+template <int DH>
+struct LayoutI8 {
+  static constexpr int RS = DH + 16;    // int8 row stride in bytes: +16 B
+  static constexpr int VPR = DH / 16;   // 16-byte vectors per int8 row
+  static constexpr int STREAM = BS * RS;
+};
+
+template <int DH>
+constexpr size_t fwd_i8_smem() {
+  using L = Layout<DH>;
+  // Q, one K and one V compute tile, P (bf16); the int8 K and V ring
+  return sizeof(bf16) * (L::TILE + 2 * L::STREAM + L::PTILE) + 4 * LayoutI8<DH>::STREAM;
+}
+
+// Copy int8 rows [row0, row0 + BS) of one head into a [BS][RS] ring stage;
+// rows at or past n are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src, size_t ld,
+                                             int row0, int n) {
+  using L8 = LayoutI8<DH>;
+  for (int e = threadIdx.x; e < BS * L8::VPR; e += NT) {
+    const int r = e / L8::VPR, vv = e % L8::VPR;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * L8::RS + vv * 16,
+               ok ? src + (size_t)(row0 + r) * ld + vv * 16 : src, ok);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 2)
+fwd_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+              const int8_t* __restrict__ v, bf16* __restrict__ out, Params p,
+              float v_scale) {
+  using L = Layout<DH>;
+  using L8 = LayoutI8<DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
+  bf16* sK = sQ + L::TILE;                         // [BS][KS] compute tile
+  bf16* sV = sK + L::STREAM;                       // [BS][KS]
+  bf16* sP = sV + L::STREAM;                       // [BT][PS]
+  int8_t* rK = reinterpret_cast<int8_t*>(sP + L::PTILE);   // [2][BS][RS] ring
+  int8_t* rV = rK + 2 * L8::STREAM;                         // [2][BS][RS]
+
+  const Seq s(p, blockIdx.z);
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * BT;
+  if (m0 >= s.n) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rb = warp % 4, hf = warp / 4;
+  const size_t ld = (size_t)p.H * DH;
+  const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
+  const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
+
+  float o[DH / 16][4] = {};
+  load_tile_i8<DH>(rK, k + base, ld, 0, s.n);
+  load_tile_i8<DH>(rV, v + base, ld, 0, s.n);
+  cp_async_commit();
+  // the CTA's own Q rows: read once, widened on the way into shared memory
+  for (int e = threadIdx.x; e < BT * L8::VPR; e += NT) {
+    const int r = e / L8::VPR, vv = e % L8::VPR;
+    int4 raw = make_int4(0, 0, 0, 0);
+    if (m0 + r < s.n)
+      raw = *reinterpret_cast<const int4*>(q + base + (size_t)(m0 + r) * ld + vv * 16);
+    widen16(sQ + r * L::KS + vv * 16, raw);
+  }
+  for (int ci = 0; ci < n_tiles; ++ci) {
+    const int buf = ci & 1;
+    if (ci + 1 < n_tiles) {   // that stage was freed by the last sync
+      load_tile_i8<DH>(rK + (buf ^ 1) * L8::STREAM, k + base, ld, (ci + 1) * BS, s.n);
+      load_tile_i8<DH>(rV + (buf ^ 1) * L8::STREAM, v + base, ld, (ci + 1) * BS, s.n);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < BS * L8::VPR; e += NT) {
+      const int r = e / L8::VPR, vv = e % L8::VPR;
+      const int src = buf * L8::STREAM + r * L8::RS + vv * 16;
+      widen16(sK + r * L::KS + vv * 16, *reinterpret_cast<const int4*>(rK + src));
+      widen16(sV + r * L::KS + vv * 16, *reinterpret_cast<const int4*>(rV + src));
+    }
+    __syncthreads();
+
+    float sc[2][4];
+    score_block<DH>(sc, sQ, sK, rb, hf, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[j][e] * p.alpha;
+        pv[e] = s.valid(p, m0 + blk_row(rb, lane, e), ci * BS + blk_col(hf, lane, j, e))
+                    ? x * sigmoid(x) * p.inv_scaling : 0.f;
+      }
+      put_block<DH>(sP, rb, hf, lane, j, pv);
+    }
+    __syncthreads();
+    accumulate<DH>(o, sP, sV, rb, hf, lane);
+    __syncthreads();   // the compute tiles and P are free again
+  }
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= v_scale;
+  store_rows<DH>(out + base, ld, o, m0, s.n, rb, hf, lane);
+}
+
 // ------------------------------------------------------------ K2: dq
 template <int DH>
 constexpr size_t dq_smem() {
@@ -635,4 +756,30 @@ extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void
   bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
   HSTU_DISPATCH_DH(dh, launch(dkv_kernel<DH, RAB>, dkv_smem<DH>(), grid, st, Q, K, V,
                               dO, dK, dV, p, r))
+}
+
+// K5: int8 q, k, v [T, H, dh], `alpha` already times q_scale * k_scale, the
+// output bf16 [T, H, dh] times `v_scale`. No bias. Same return codes.
+extern "C" int hstu_attn_fwd_int8_launch(
+    const void* q, const void* k, const void* v, void* out, const int* seq_offsets,
+    const int* num_contextuals, const int* num_targets, int B, int H, int dh,
+    int max_seqlen, float alpha, float inv_scaling, int causal, int target_group_size,
+    int max_attn_len, int min_full_attn_seq_len, float v_scale, void* stream) {
+  if (target_group_size < 1) return -1;
+  if (B == 0 || H == 0 || max_seqlen == 0) return 0;
+  const Params p = make_params(seq_offsets, num_contextuals, num_targets, H, alpha,
+                               inv_scaling, causal, target_group_size, max_attn_len,
+                               min_full_attn_seq_len);
+  const dim3 grid((max_seqlen + BT - 1) / BT, H, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t *Q = static_cast<const int8_t*>(q), *K = static_cast<const int8_t*>(k),
+               *V = static_cast<const int8_t*>(v);
+  bf16* O = static_cast<bf16*>(out);
+  switch (dh) {
+    case 32: return launch(fwd_i8_kernel<32>, fwd_i8_smem<32>(), grid, st, Q, K, V, O, p, v_scale);
+    case 64: return launch(fwd_i8_kernel<64>, fwd_i8_smem<64>(), grid, st, Q, K, V, O, p, v_scale);
+    case 128: return launch(fwd_i8_kernel<128>, fwd_i8_smem<128>(), grid, st, Q, K, V, O, p, v_scale);
+    case 256: return launch(fwd_i8_kernel<256>, fwd_i8_smem<256>(), grid, st, Q, K, V, O, p, v_scale);
+    default: return -1;
+  }
 }

@@ -38,6 +38,16 @@
 //   CTA per SM at small batch, latency is what limits: eight warps and two
 //   independent mma chains in Q K^T hide more of it than four warps did.
 //   fp32 pages: 256 threads of scalar fp32 FMA on the same chunk walk.
+//   int8 pages (the `quantized` branches of the TPU kernel; bf16 q and new
+//   tokens): pages [P, pg, H, dh] int8 with fp32 scales [P, pg, H] per
+//   (token, head). The ring carries the int8 rows (half the page bytes) and
+//   the chunk's two scale rows; each arrived chunk is widened to bf16 (exact)
+//   into one compute tile, and the tensor-core math of the bf16 kernel runs
+//   on it with sc = (q . k8) alpha ks and p = silu(sc) / scaling * mask * vs.
+//   The TPU kernel runs these two products in fp32; here p vs is rounded to
+//   bf16 before p . v8 (v8 itself is exact). Chunks never mix sources: the
+//   page positions [0, cached) are walked first, then the new tokens' tail
+//   (bf16, copied straight into the compute tile).
 // Not done yet: wgmma/TMA, and a split over pages to fill all 132 SMs when
 // users x heads x tiles is small (64 CTAs at the serving shape).
 
@@ -120,11 +130,107 @@ struct Smem {
 };
 
 using sm90::cp_async16;
+using sm90::cp_async4;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
 using sm90::ld32;
 using sm90::ldmatrix_x4;
 using sm90::ldmatrix_x4_trans;
 using sm90::mma;
 using sm90::pack_bf16;
+using sm90::widen16;
+
+// One chunk of BN key positions starting at `pos0`: the warp's 16 x 16 block
+// of S = Q K^T, mask and silu in registers, P (bf16) through shared memory,
+// then the warp's 16 rows x DH/2 columns of O += P V. Every thread of the
+// CTA calls it; the last sync frees the K/V tiles and P. With SCALED (int8
+// pages) the scores take the keys' scales and P the values'.
+template <int DH, bool SCALED>
+__device__ __forceinline__ void chunk_math(
+    float (&o)[DH / 16][4], const bf16* q_s, const bf16* k_s, const bf16* v_s,
+    const int* ok_s, const float* ks_s, const float* vs_s, bf16* sP, const Tile& T,
+    const Args& a, int pos0, int rb, int hf, int lane) {
+  constexpr int KS = Smem<DH>::KS, PS = Smem<DH>::PS;
+  constexpr int OC = DH / 2;               // output columns per warp
+  constexpr int CW = BN / 2;               // score columns per warp
+  const int g = lane / 4, t = lane % 4;
+  const int mi = lane / 8, rr = lane % 8;  // ldmatrix: matrix and row of lane
+
+  // S = Q K^T on 16 rows x BN/2 columns; even and odd k-steps
+  // accumulate apart, so more mma chains are in flight
+  float s[2][CW / 8][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j) s[x][j][0] = s[x][j][1] = s[x][j][2] = s[x][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const bf16* qr = q_s + g * KS + kk * 16 + 2 * t;
+    const uint32_t qa[4] = {ld32(qr), ld32(qr + 8 * KS), ld32(qr + 8),
+                            ld32(qr + 8 * KS + 8)};
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j) {
+      const bf16* kr = k_s + (hf * CW + j * 8 + g) * KS + kk * 16 + 2 * t;
+      mma(s[kk & 1][j], qa, ld32(kr), ld32(kr + 8));
+    }
+  }
+  // mask, silu and scale; P rounds to bf16 into shared memory
+#pragma unroll
+  for (int j = 0; j < CW / 8; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rb * 16 + g + (e >> 1) * 8;
+      const int cl = hf * CW + j * 8 + 2 * t + (e & 1);
+      float sc = s[0][j][e] + s[1][j][e];
+      if constexpr (SCALED) sc *= ks_s[cl];
+      v[e] = ok_s[cl] && T.valid(r, pos0 + cl) ? T.prob(sc, a) : 0.f;
+      if constexpr (SCALED) v[e] *= vs_s[cl];
+    }
+    bf16* pr = sP + (rb * 16 + g) * PS + hf * CW + j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(pr) = pack_bf16(v[0], v[1]);
+    *reinterpret_cast<uint32_t*>(pr + 8 * PS) = pack_bf16(v[2], v[3]);
+  }
+  __syncthreads();
+
+  // O += P V on 16 rows x DH/2 columns: P through ldmatrix, V through
+  // ldmatrix.trans, two n-tiles at a time
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    uint32_t pa[4];
+    ldmatrix_x4(pa, sP + (rb * 16 + rr + (mi & 1) * 8) * PS + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+    for (int np = 0; np < OC / 16; ++np) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, v_s + (kk * 16 + rr + (mi & 1) * 8) * KS +
+                                hf * OC + np * 16 + (mi >> 1) * 8);
+      mma(o[2 * np], pa, bv[0], bv[1]);
+      mma(o[2 * np + 1], pa, bv[2], bv[3]);
+    }
+  }
+  __syncthreads();   // the K/V tiles and P are free again
+}
+
+// The warp's accumulator rows to `ob` (row 0 of this user and head); rows
+// past new_len kept o = 0, so padded query rows come out as zero.
+template <int DH>
+__device__ __forceinline__ void store_out(bf16* ob, size_t tok_stride,
+                                          const float (&o)[DH / 16][4], const Tile& T,
+                                          int S, int rb, int hf, int lane) {
+  constexpr int OC = DH / 2;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = T.m0 + rb * 16 + g;
+#pragma unroll
+  for (int j = 0; j < OC / 8; ++j) {
+    const int col = hf * OC + j * 8 + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * tok_stride + col) =
+          __floats2bfloat162_rn(o[j][0], o[j][1]);
+    if (r0 + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r0 + 8) * tok_stride + col) =
+          __floats2bfloat162_rn(o[j][2], o[j][3]);
+  }
+}
 
 // Warp w owns query rows 16 * (w % 4) .. +15. For S = Q K^T it takes chunk
 // columns (BN / 2) * (w / 4) .. +BN/2 and for O += P V head-dim columns
@@ -137,8 +243,6 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
        const bf16* __restrict__ new_v, bf16* __restrict__ out, Args a) {
   constexpr int KS = Smem<DH>::KS, PS = Smem<DH>::PS;
   constexpr int VPR = DH / 8;              // 16-byte vectors per row
-  constexpr int OC = DH / 2;               // output columns per warp
-  constexpr int CW = BN / 2;               // score columns per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][KS]
   bf16* sK = sQ + BM * KS;                       // [2][BN][KS]
@@ -149,16 +253,14 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
 
   const Tile T(a, BM);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
   const int rb = warp % 4, hf = warp / 4;
-  const int mi = lane / 8, rr = lane % 8;  // ldmatrix: matrix and row of lane
   const size_t tok_stride = (size_t)a.H * DH;
   const bf16* qb = q + ((size_t)T.b * a.S * a.H + T.h) * DH;
   bf16* ob = out + ((size_t)T.b * a.S * a.H + T.h) * DH;
 
-  float o[OC / 8][4];
+  float o[DH / 16][4];
 #pragma unroll
-  for (int j = 0; j < OC / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < DH / 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
   if (T.rows_live > 0) {
     // the user's page ids, read once; the Q tile joins the first chunk's
@@ -211,72 +313,130 @@ kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
       const bf16* v_s = sV + buf * BN * KS;
       const int* ok_s = sOk + buf * BN;
 
-      // S = Q K^T on 16 rows x BN/2 columns; even and odd k-steps
-      // accumulate apart, so more mma chains are in flight
-      float s[2][CW / 8][4];
-#pragma unroll
-      for (int x = 0; x < 2; ++x)
-#pragma unroll
-        for (int j = 0; j < CW / 8; ++j) s[x][j][0] = s[x][j][1] = s[x][j][2] = s[x][j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const bf16* qr = q_s + g * KS + kk * 16 + 2 * t;
-        const uint32_t qa[4] = {ld32(qr), ld32(qr + 8 * KS), ld32(qr + 8),
-                                ld32(qr + 8 * KS + 8)};
-#pragma unroll
-        for (int j = 0; j < CW / 8; ++j) {
-          const bf16* kr = k_s + (hf * CW + j * 8 + g) * KS + kk * 16 + 2 * t;
-          mma(s[kk & 1][j], qa, ld32(kr), ld32(kr + 8));
-        }
-      }
-      // mask, silu and scale; P rounds to bf16 into shared memory
-#pragma unroll
-      for (int j = 0; j < CW / 8; ++j) {
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = rb * 16 + g + (e >> 1) * 8;
-          const int cl = hf * CW + j * 8 + 2 * t + (e & 1);
-          v[e] = ok_s[cl] && T.valid(r, ci * BN + cl)
-                     ? T.prob(s[0][j][e] + s[1][j][e], a) : 0.f;
-        }
-        bf16* pr = sP + (rb * 16 + g) * PS + hf * CW + j * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(pr) = pack_bf16(v[0], v[1]);
-        *reinterpret_cast<uint32_t*>(pr + 8 * PS) = pack_bf16(v[2], v[3]);
-      }
-      __syncthreads();
-
-      // O += P V on 16 rows x DH/2 columns: P through ldmatrix, V through
-      // ldmatrix.trans, two n-tiles at a time
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[4];
-        ldmatrix_x4(pa, sP + (rb * 16 + rr + (mi & 1) * 8) * PS + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int np = 0; np < OC / 16; ++np) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, v_s + (kk * 16 + rr + (mi & 1) * 8) * KS +
-                                    hf * OC + np * 16 + (mi >> 1) * 8);
-          mma(o[2 * np], pa, bv[0], bv[1]);
-          mma(o[2 * np + 1], pa, bv[2], bv[3]);
-        }
-      }
-      __syncthreads();   // this stage and P are free again
+      chunk_math<DH, false>(o, q_s, k_s, v_s, ok_s, nullptr, nullptr, sP, T, a, ci * BN,
+                            rb, hf, lane);
     }
   }
 
-  // rows past new_len keep o = 0: padded query rows come out as zero
-  const int r0 = T.m0 + rb * 16 + g;
+  store_out<DH>(ob, tok_stride, o, T, a.S, rb, hf, lane);
+}
+
+// ---- int8 pages
+template <int DH>
+struct SmemI8 {
+  static constexpr int KS = Smem<DH>::KS, PS = Smem<DH>::PS;
+  static constexpr int RS = DH + 16;  // int8 ring row stride in bytes: +16 B
+  // Q, one K and one V compute tile, P; the int8 ring; scales and validity
+  // per stage; + the user's page-table row (maxp ints) after these
+  static constexpr size_t bytes = sizeof(bf16) * (BM * KS + 2 * BN * KS + BM * PS) +
+                                  4 * BN * RS + sizeof(float) * 4 * BN +
+                                  sizeof(int) * 2 * BN;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(NT, 2)
+kernel_i8(const bf16* __restrict__ q, const int8_t* __restrict__ k_pages,
+          const int8_t* __restrict__ v_pages, const float* __restrict__ k_scales,
+          const float* __restrict__ v_scales, const bf16* __restrict__ new_k,
+          const bf16* __restrict__ new_v, bf16* __restrict__ out, Args a) {
+  constexpr int KS = SmemI8<DH>::KS, PS = SmemI8<DH>::PS, RS = SmemI8<DH>::RS;
+  constexpr int VPR = DH / 8;              // 16-byte vectors per bf16 row
+  constexpr int VPR8 = DH / 16;            // 16-byte vectors per int8 row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);      // [BM][KS]
+  bf16* cK = sQ + BM * KS;                           // [BN][KS] compute tile
+  bf16* cV = cK + BN * KS;                           // [BN][KS]
+  bf16* sP = cV + BN * KS;                           // [BM][PS]
+  int8_t* rK = reinterpret_cast<int8_t*>(sP + BM * PS);   // [2][BN][RS] ring
+  int8_t* rV = rK + 2 * BN * RS;                          // [2][BN][RS]
+  float* sKs = reinterpret_cast<float*>(rV + 2 * BN * RS);   // [2][BN]
+  float* sVs = sKs + 2 * BN;                                  // [2][BN]
+  int* sOk = reinterpret_cast<int*>(sVs + 2 * BN);            // [2][BN]
+  int* sPT = sOk + 2 * BN;                                    // [maxp]
+
+  const Tile T(a, BM);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rb = warp % 4, hf = warp / 4;
+  const size_t tok_stride = (size_t)a.H * DH;
+  const bf16* qb = q + ((size_t)T.b * a.S * a.H + T.h) * DH;
+  bf16* ob = out + ((size_t)T.b * a.S * a.H + T.h) * DH;
+
+  float o[DH / 16][4];
 #pragma unroll
-  for (int j = 0; j < OC / 8; ++j) {
-    const int col = hf * OC + j * 8 + 2 * t;
-    if (r0 < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * tok_stride + col) =
-          __floats2bfloat162_rn(o[j][0], o[j][1]);
-    if (r0 + 8 < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r0 + 8) * tok_stride + col) =
-          __floats2bfloat162_rn(o[j][2], o[j][3]);
+  for (int j = 0; j < DH / 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  if (T.rows_live > 0) {
+    for (int j = tid; j < a.maxp; j += NT) sPT[j] = a.page_table[(size_t)T.b * a.maxp + j];
+    for (int e = tid; e < BM * VPR; e += NT) {   // joins the first copy group
+      const int r = e / VPR, vv = e % VPR;
+      const int i = T.m0 + r;
+      const bool ok = r < T.rows_live && i < a.S;
+      cp_async16(sQ + r * KS + vv * 8, ok ? qb + (size_t)i * tok_stride + vv * 8 : q, ok);
+    }
+    __syncthreads();
+    // page positions [ci * BN, +BN) below `cached`: int8 rows and their scales
+    auto load_pages = [&](int ci, int buf) {
+      for (int e = tid; e < BN * VPR8; e += NT) {
+        const int c = e / VPR8, vv = e % VPR8;
+        const int pos = ci * BN + c;
+        bool paged;
+        const long long off = pos < T.cached ? T.kv_offset<DH>(a, sPT, pos, &paged) : -1;
+        const bool ok = off >= 0;
+        cp_async16(rK + (buf * BN + c) * RS + vv * 16, ok ? k_pages + off + vv * 16 : k_pages, ok);
+        cp_async16(rV + (buf * BN + c) * RS + vv * 16, ok ? v_pages + off + vv * 16 : v_pages, ok);
+        if (vv == 0) {
+          const long long soff = ok ? off / DH : 0;   // (page, slot, head)
+          cp_async4(sKs + buf * BN + c, k_scales + soff, ok);
+          cp_async4(sVs + buf * BN + c, v_scales + soff, ok);
+          sOk[buf * BN + c] = ok;
+        }
+      }
+      cp_async_commit();
+    };
+
+    const bf16* q_s = sQ + rb * 16 * KS;
+    const int n_page_chunks = (T.cached + BN - 1) / BN;
+    if (n_page_chunks > 0) load_pages(0, 0);
+    for (int ci = 0; ci < n_page_chunks; ++ci) {
+      const int buf = ci & 1;
+      if (ci + 1 < n_page_chunks) {
+        load_pages(ci + 1, buf ^ 1);   // that stage was freed by the last sync
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      // widen the arrived int8 rows into the compute tiles
+      for (int e = tid; e < BN * VPR8; e += NT) {
+        const int c = e / VPR8, vv = e % VPR8;
+        widen16(cK + c * KS + vv * 16,
+                *reinterpret_cast<const int4*>(rK + (buf * BN + c) * RS + vv * 16));
+        widen16(cV + c * KS + vv * 16,
+                *reinterpret_cast<const int4*>(rV + (buf * BN + c) * RS + vv * 16));
+      }
+      __syncthreads();
+      chunk_math<DH, true>(o, q_s, cK, cV, sOk + buf * BN, sKs + buf * BN, sVs + buf * BN,
+                           sP, T, a, ci * BN, rb, hf, lane);
+    }
+    // the new tokens' tail, bf16, straight into the compute tiles
+    for (int pos0 = T.cached; pos0 < T.n_pos; pos0 += BN) {
+      for (int e = tid; e < BN * VPR; e += NT) {
+        const int c = e / VPR, vv = e % VPR;
+        const bool ok = pos0 + c < T.n_pos;
+        const size_t off =
+            (((size_t)T.b * a.S + (pos0 + c - T.cached)) * a.H + T.h) * DH + vv * 8;
+        cp_async16(cK + c * KS + vv * 8, ok ? new_k + off : new_k, ok);
+        cp_async16(cV + c * KS + vv * 8, ok ? new_v + off : new_v, ok);
+        if (vv == 0) sOk[c] = ok;
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      chunk_math<DH, false>(o, q_s, cK, cV, sOk, nullptr, nullptr, sP, T, a, pos0, rb, hf,
+                            lane);
+    }
   }
+  store_out<DH>(ob, tok_stride, o, T, a.S, rb, hf, lane);
 }
 
 }  // namespace tc
@@ -443,6 +603,22 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
   }
 }
 
+template <int DH>
+int launch_i8(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+              const void* nk, const void* nv, void* out, const Args& a, int B,
+              cudaStream_t st) {
+  const size_t smem = tc::SmemI8<DH>::bytes + sizeof(int) * a.maxp;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc::kernel_i8<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.S + tc::BM - 1) / tc::BM, a.H, B);
+  tc::kernel_i8<DH><<<grid, tc::NT, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const int8_t*>(kp),
+      static_cast<const int8_t*>(vp), ks, vs, static_cast<const bf16*>(nk),
+      static_cast<const bf16*>(nv), static_cast<bf16*>(out), a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp32 (q, pages, new K/V and out share it).
@@ -463,4 +639,25 @@ extern "C" int paged_hstu_delta_attention_launch(
   if (dtype == 1)
     return dispatch_dh<float>(dh, q, k_pages, v_pages, new_k, new_v, out, a, B, st);
   return -1;
+}
+
+// The int8 page mode: q, new K/V and out bf16; k_pages / v_pages int8
+// [P, pg, H, dh] with fp32 scales [P, pg, H] per (token, head). Same return
+// codes.
+extern "C" int paged_hstu_delta_attention_int8_launch(
+    const void* q, const void* k_pages, const void* v_pages, const float* k_scales,
+    const float* v_scales, const int* page_table, const int* cached_len, const void* new_k,
+    const void* new_v, const int* new_lens, const int* num_targets, void* out, int B, int S,
+    int H, int dh, int pg, int maxp, float alpha, float inv_scaling, void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  const Args a{page_table, cached_len, new_lens, num_targets, S, H, pg, maxp,
+               alpha, inv_scaling};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32: return launch_i8<32>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
+    case 64: return launch_i8<64>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
+    case 128: return launch_i8<128>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
+    case 256: return launch_i8<256>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
+    default: return -1;
+  }
 }

@@ -1,6 +1,7 @@
 // Warp-level building blocks shared by the port's attention kernels:
-// 16-byte cp.async copies, ldmatrix loads and the bf16 mma.sync m16n8k16
-// tensor-core product with fp32 accumulators.
+// 16-byte (and 4-byte) cp.async copies, ldmatrix loads, the bf16 mma.sync
+// m16n8k16 tensor-core product with fp32 accumulators, and the widening of
+// int8 vectors to bf16 for the int8 kernel modes.
 //
 // Fragment layout of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}
@@ -22,6 +23,11 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+// 4-byte async copy (one fp32 scale); zero-fills when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -56,6 +62,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 int8 values (one 16-byte vector, little-endian) -> 16 bf16 values at
+// `dst` (32 bytes, 16-byte aligned). Every int8 is exact in bf16.
+__device__ __forceinline__ void widen16(bf16* dst, int4 raw) {
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int x = w[i];
+    o[2 * i] = pack_bf16((float)(int8_t)x, (float)(int8_t)(x >> 8));
+    o[2 * i + 1] = pack_bf16((float)(int8_t)(x >> 16), (float)(int8_t)(x >> 24));
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 }  // namespace sm90

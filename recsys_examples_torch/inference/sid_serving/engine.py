@@ -1,0 +1,86 @@
+"""SID-GR serving engine: bucketed batched beam generation (counterpart of
+recsys_examples_tpu/inference/sid_serving/engine.py `GRServingEngine`).
+
+Requests are padded to a (batch bucket, context bucket) shape and run the
+whole prefill + KV-cached beam decode (`SIDGRModel.generate_beam_decode`,
+kernel K7 on the card). PyTorch runs eagerly, so there is nothing to compile:
+`compile_count` counts the (batch, ctx) buckets first seen, the number the
+JAX package's jit cache would hold. The batch is built in numpy, moved to
+the model's device once, and paths and scores are read back once per call.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Set, Tuple
+
+import numpy as np
+
+from recsys_examples_torch.data.sid_batch import SIDBatch
+from recsys_examples_torch.models.sid_gr import SIDGRModel
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    beam_width: int = 64
+    ctx_buckets: Tuple[int, ...] = (64, 256, 1024)    # context tokens
+    batch_buckets: Tuple[int, ...] = (1, 4, 8)
+    max_batch_tokens: int = 16384      # admission memory budget
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds max bucket {buckets[-1]}")
+
+
+class GRServingEngine:
+    """`model` carries its own params and device (the card unless it was
+    built with another)."""
+
+    def __init__(self, model: SIDGRModel, cfg: ServingConfig):
+        self.model = model.eval()
+        self.cfg = cfg
+        self._seen: Set[Tuple[int, int]] = set()
+        self.compile_count = 0
+
+    def generate(self, contexts: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """contexts: per-request flat SID history streams.
+
+        Returns (paths [B, W, H] int32, scores [B, W] float32)."""
+        B = len(contexts)
+        Bb = _bucket(B, self.cfg.batch_buckets)
+        H = self.model.config.num_hierarchies
+        maxlen = max((len(c) for c in contexts), default=1)
+        N = _bucket(max(maxlen, H), self.cfg.ctx_buckets)
+        sids = np.zeros((Bb * N,), np.int32)
+        lens = np.zeros((Bb,), np.int32)
+        pos = 0
+        for i, c in enumerate(contexts):
+            n = len(c) - (len(c) % H)  # whole items only
+            sids[pos:pos + n] = c[:n]
+            lens[i] = n
+            pos += n
+        batch = SIDBatch(
+            history_sids=sids,
+            history_lengths=lens,
+            history_offsets=np.concatenate([[0], np.cumsum(lens)]).astype(np.int32),
+            candidate_sids=np.zeros((Bb, H), np.int32),
+            batch_size=Bb,
+            num_hierarchies=H,
+            max_history_tokens=N,
+        )
+        if (Bb, N) not in self._seen:
+            self._seen.add((Bb, N))
+            self.compile_count += 1
+        paths, scores = self.model.generate_beam_decode(
+            batch, beam_width=self.cfg.beam_width)
+        return (paths[:B].to("cpu").numpy().astype(np.int32),
+                scores[:B].to("cpu").numpy())
+
+    def warmup(self):
+        """Run every bucket combination once."""
+        H = self.model.config.num_hierarchies
+        for Bb in self.cfg.batch_buckets:
+            for N in self.cfg.ctx_buckets:
+                self.generate([np.zeros((min(H, N),), np.int32)] * Bb)

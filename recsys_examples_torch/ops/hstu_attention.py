@@ -12,8 +12,10 @@ dq + drab, dk/dv):
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
 Each kernel wrapper counts its launches in `.launches`.
 
-Not ported yet: the int8 forward (K5,
-`hstu_attn_varlen_quantized_calibrated`).
+`hstu_attn_varlen_quantized_calibrated` is the int8 forward (K5): int8 q, k,
+v with three per-tensor scales (`quantize_per_tensor`), forward only, no
+autograd, no bias. `hstu_attn_varlen(quantized=True)` quantizes its operands
+per tensor and takes that route.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from recsys_examples_torch.ops.hstu_attention_ref import (
     hstu_attn_bwd_ref,
+    hstu_mha_int8_reference,
     hstu_mha_reference,
 )
 
@@ -107,25 +110,33 @@ def _rab_args(rab, drab, B, H, opts: AttnOptions, dev):
             rab.shape[3], int(rab.dtype == torch.bfloat16), int(shared))
 
 
-def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
-            opts: AttnOptions, rab=None, drab=None):
-    """Check the operands and launch `entry` on the current stream."""
-    q = tensors[0]
-    T, H, dh = q.shape
+def _check_operands(entry, tensors, dtype, seq_offsets, num_contextuals, num_targets,
+                    opts: AttnOptions):
+    """What every kernel of `csrc/hstu_attention.cu` asks of its operands.
+    Returns (B, H, dh, device)."""
+    T, H, dh = tensors[0].shape
     B = seq_offsets.shape[0] - 1
-    dev = q.device
+    dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{entry} takes CUDA tensors, got {dev}")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"HSTU attention kernels take head dims {_HEAD_DIMS}, got {dh}")
     for name, t in zip(("q", "k", "v", "dout"), tensors):
-        _check(name, t, torch.bfloat16, (T, H, dh), dev)
+        _check(name, t, dtype, (T, H, dh), dev)
     _check("seq_offsets", seq_offsets, torch.int32, (B + 1,), dev)
     for name, t in (("num_contextuals", num_contextuals), ("num_targets", num_targets)):
         if t is not None:
             _check(name, t, torch.int32, (B,), dev)
     if opts.target_group_size < 1:
         raise ValueError("target_group_size must be >= 1")
+    return B, H, dh, dev
+
+
+def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
+            opts: AttnOptions, rab=None, drab=None):
+    """Check the operands and launch `entry` on the current stream."""
+    B, H, dh, dev = _check_operands(entry, tensors, torch.bfloat16, seq_offsets,
+                                    num_contextuals, num_targets, opts)
     fn = _fn(entry)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
@@ -210,7 +221,38 @@ def hstu_attn_rab_bwd_dkv_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
     return dk, dv
 
 
+def hstu_attn_fwd_int8_cuda(q8, k8, v8, seq_offsets, num_contextuals, num_targets,
+                            opts: AttnOptions, v_scale: float) -> torch.Tensor:
+    """K5: K1 on int8 q, k, v [T, H, dh]. `opts.alpha` already holds
+    alpha * q_scale * k_scale; the bf16 output is scaled by `v_scale`. Rows
+    no sequence owns come out zero."""
+    from recsys_examples_torch.utils import cuda_build
+
+    B, H, dh, dev = _check_operands("hstu_attn_fwd_int8_launch", (q8, k8, v8), torch.int8,
+                                    seq_offsets, num_contextuals, num_targets, opts)
+    fn = cuda_build.load("hstu_attention").hstu_attn_fwd_int8_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 \
+        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(q8.shape, dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = fn(
+            q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), out.data_ptr(),
+            seq_offsets.data_ptr(), ptr(num_contextuals), ptr(num_targets),
+            B, H, dh, opts.max_seqlen, float(opts.alpha),
+            1.0 / float(opts.scaling_seqlen), int(opts.causal),
+            opts.target_group_size, opts.max_attn_len, opts.min_full_attn_seq_len,
+            float(v_scale), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hstu_attn_fwd_int8_launch failed: error {err}")
+    hstu_attn_fwd_int8_cuda.launches += 1
+    return out
+
+
 hstu_attn_fwd_cuda.launches = 0
+hstu_attn_fwd_int8_cuda.launches = 0
 hstu_attn_bwd_dq_cuda.launches = 0
 hstu_attn_bwd_dkv_cuda.launches = 0
 hstu_attn_rab_fwd_cuda.launches = 0
@@ -284,6 +326,57 @@ class _HSTUAttention(torch.autograd.Function):
         return dq, dk, dv, drab, None, None, None, None
 
 
+def quantize_per_tensor(x: torch.Tensor):
+    """Symmetric int8 per-tensor quantization. Returns (values int8, scale
+    float); reading the scale synchronises with the device."""
+    scale = max(float(x.abs().max()), 1e-12) / 127.0
+    xi = torch.clamp(torch.round(x.float() * (1.0 / scale)), -127, 127).to(torch.int8)
+    return xi, scale
+
+
+def hstu_attn_varlen_quantized_calibrated(
+    q_int8: torch.Tensor,
+    k_int8: torch.Tensor,
+    v_int8: torch.Tensor,
+    q_scale: float,
+    k_scale: float,
+    v_scale: float,
+    seq_offsets: torch.Tensor,
+    max_seqlen: int,
+    *,
+    num_contextuals: Optional[torch.Tensor] = None,
+    num_targets: Optional[torch.Tensor] = None,
+    alpha: float = 1.0,
+    scaling_seqlen: int = -1,
+    causal: bool = True,
+    target_group_size: int = 1,
+    max_attn_len: int = 0,
+    min_full_attn_seq_len: int = 0,
+) -> torch.Tensor:
+    """Int8-quantized HSTU attention forward (inference): int8 q, k [T, H, D]
+    and v [T, H, V], symmetrically quantized with static per-tensor scales.
+    The q and k scales fold into alpha, the v scale into the output. Returns
+    bf16 [T, H, V]. Forward only. CUDA tensors launch K5 or raise; CPU
+    tensors run the plain version."""
+    opts = AttnOptions(
+        max_seqlen=int(max_seqlen),
+        alpha=float(alpha) * float(q_scale) * float(k_scale),
+        scaling_seqlen=int(max_seqlen if scaling_seqlen == -1 else scaling_seqlen),
+        causal=bool(causal), target_group_size=int(target_group_size),
+        max_attn_len=int(max_attn_len),
+        min_full_attn_seq_len=int(min_full_attn_seq_len),
+    )
+    if _on(q_int8.device) == "cuda":
+        i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
+        return hstu_attn_fwd_int8_cuda(
+            q_int8, k_int8, v_int8, i32(seq_offsets), i32(num_contextuals),
+            i32(num_targets), opts, v_scale)
+    return hstu_mha_int8_reference(
+        opts.max_seqlen, alpha, q_int8, k_int8, v_int8, q_scale, k_scale, v_scale,
+        seq_offsets, num_targets=num_targets, num_contextuals=num_contextuals,
+        **opts.ref_kwargs())
+
+
 def hstu_attn_varlen(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -308,10 +401,21 @@ def hstu_attn_varlen(
     batch's longest sequence). `rab` [B|1, H|1, Nq, Nk] with Nq, Nk >=
     max_seqlen, fp32 or bf16, is added to the scores before the SiLU; its
     gradient comes back in its shape and dtype. On CUDA the offsets and
-    counts are passed to the kernels as int32.
+    counts are passed to the kernels as int32. `quantized=True` quantizes q,
+    k and v per tensor to int8 and runs the int8 forward (bf16 output, no
+    gradient, no bias).
     """
     if quantized:
-        raise NotImplementedError("int8 attention (K5) is not ported yet")
+        if rab is not None:
+            raise ValueError("the int8 forward takes no relative attention bias")
+        with torch.no_grad():
+            (q8, sq), (k8, sk), (v8, sv) = (quantize_per_tensor(x) for x in (q, k, v))
+            return hstu_attn_varlen_quantized_calibrated(
+                q8, k8, v8, sq, sk, sv, seq_offsets, max_seqlen,
+                num_contextuals=num_contextuals, num_targets=num_targets, alpha=alpha,
+                scaling_seqlen=scaling_seqlen, causal=causal,
+                target_group_size=target_group_size, max_attn_len=max_attn_len,
+                min_full_attn_seq_len=min_full_attn_seq_len)
     opts = AttnOptions(
         max_seqlen=int(max_seqlen), alpha=float(alpha),
         scaling_seqlen=int(max_seqlen if scaling_seqlen == -1 else scaling_seqlen),

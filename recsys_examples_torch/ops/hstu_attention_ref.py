@@ -2,8 +2,9 @@
 backward (counterpart of recsys_examples_tpu/ops/hstu_attention_ref.py).
 
 These are the plain versions of the CUDA kernels K1 (forward), K2 (dq) and
-K3 (dk/dv) in `csrc/hstu_attention.cu`, and with `rab` of K4 (the same three
-with a relative attention bias, and its gradient): the CPU path of
+K3 (dk/dv) in `csrc/hstu_attention.cu`, with `rab` of K4 (the same three
+with a relative attention bias, and its gradient), and of K5 (the int8
+forward, `hstu_mha_int8_reference`): the CPU path of
 `ops.hstu_attention.hstu_attn_varlen`, and what `chip_smoke.py` holds the
 kernels against on the card.
 
@@ -153,6 +154,41 @@ def hstu_mha_reference(
     pv = _padded(v, seq_offsets, max_seq_len)
     out = torch.einsum("bhxy,bhyv->bhxv", p.to(v.dtype).float(), pv.float())
     return _jagged(out.to(v.dtype), seq_offsets, q.shape[0])
+
+
+def hstu_mha_int8_reference(
+    max_seq_len: int,
+    alpha: float,
+    q8: torch.Tensor,
+    k8: torch.Tensor,
+    v8: torch.Tensor,
+    q_scale: float,
+    k_scale: float,
+    v_scale: float,
+    seq_offsets: torch.Tensor,
+    **mask_kwargs,
+) -> torch.Tensor:
+    """Plain K5: `hstu_mha_reference` on int8 q, k [T, H, D], v [T, H, V]
+    with per-tensor scales. The int8 values are widened to bf16 (exact), the
+    two scales of the scores fold into alpha, P rounds to bf16 before P v8,
+    and the fp32 sum takes `v_scale` before it rounds to bf16 [T, H, V].
+    `mask_kwargs`: `hstu_mha_reference`'s mask arguments (no bias)."""
+    scaling_seqlen = mask_kwargs.pop("scaling_seqlen", -1)
+    if scaling_seqlen == -1:
+        scaling_seqlen = max_seq_len
+    kw = dict(causal=True, num_targets=None, num_contextuals=None, max_attn_len=0,
+              min_full_attn_seq_len=0, target_group_size=1)
+    kw.update(mask_kwargs)
+    bf = torch.bfloat16
+    s, mask = _scores_and_mask(
+        q8.to(bf), k8.to(bf), seq_offsets, max_seq_len,
+        float(alpha) * float(q_scale) * float(k_scale), kw["causal"], kw["num_targets"],
+        kw["num_contextuals"], kw["max_attn_len"], kw["min_full_attn_seq_len"],
+        kw["target_group_size"])
+    p = F.silu(s) * (1.0 / scaling_seqlen) * mask.to(s.dtype)
+    pv = _padded(v8.to(bf), seq_offsets, max_seq_len)
+    out = torch.einsum("bhxy,bhyv->bhxv", p.to(bf).float(), pv.float()) * float(v_scale)
+    return _jagged(out.to(bf), seq_offsets, q8.shape[0])
 
 
 def hstu_attn_bwd_ref(

@@ -140,8 +140,13 @@ def test_zero_length_sequence_and_unported_options():
     assert out.shape == (7, 1, 32) and not out[5:].any() and out[:5].abs().sum() > 0
     # a zero bias changes nothing
     assert torch.equal(t_attn(q, k, v, so, 8, alpha=0.1, rab=torch.zeros(1, 1, 8, 8)), out)
-    with pytest.raises(NotImplementedError):
-        t_attn(q, k, v, so, 8, quantized=True)
+    # the int8 forward is ported (tests/test_torch_quantized.py): it runs, in
+    # bf16, close to the fp32 forward; what it still refuses is a bias
+    q8 = t_attn(q, k, v, so, 8, alpha=0.1, quantized=True)
+    assert q8.dtype == torch.bfloat16 and not q8[5:].any()
+    assert (q8.float() - out).abs().max() < 0.05 * out.abs().max()
+    with pytest.raises(ValueError):
+        t_attn(q, k, v, so, 8, quantized=True, rab=torch.zeros(1, 1, 8, 8))
 
 
 # ------------------------------------------------------------ K4: rab

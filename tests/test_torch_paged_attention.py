@@ -97,8 +97,22 @@ def test_wrapper_on_cpu_takes_plain_version():
 
 
 def test_int8_pages_not_ported():
+    """The int8 page mode is ported now (tests/test_torch_quantized.py holds
+    it against JAX): int8 pages with unit scales equal the same values as
+    fp32 pages, and pages and scales that do not belong together are
+    refused."""
     case = _case(4, 1, 2, 1, 8, 4, 4, 1, False)
+    case["k_pages"] = np.round(case["k_pages"] * 20).astype(np.float32)
+    case["v_pages"] = np.round(case["v_pages"] * 20).astype(np.float32)
     args = _args(case, torch.from_numpy)
-    with pytest.raises(NotImplementedError):
-        torch_paged(*args, 0.5, 16.0, k_scales=torch.ones(4, 4, 1),
-                    v_scales=torch.ones(4, 4, 1))
+    ones = torch.ones(4, 4, 1)
+    with pytest.raises(TypeError, match="int8"):
+        torch_paged(*args, 0.5, 16.0, k_scales=ones, v_scales=ones)
+    int8 = list(args)
+    int8[1], int8[2] = args[1].to(torch.int8), args[2].to(torch.int8)
+    with pytest.raises(TypeError, match="scales"):
+        torch_paged(*int8, 0.5, 16.0)
+    with pytest.raises(ValueError, match="together"):
+        torch_paged(*int8, 0.5, 16.0, k_scales=ones)
+    got = torch_paged(*int8, 0.5, 16.0, k_scales=ones, v_scales=ones)
+    np.testing.assert_allclose(got.numpy(), _torch(case, 0.5, 16.0), rtol=1e-6, atol=1e-6)

@@ -156,3 +156,58 @@ def test_dynamic_tables_default_to_cuda_and_refuse_a_mesh():
                          prediction_head_arch=(4, 1), num_tasks=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         GRTrainer(RankingGR(cfg, task), make_optimizer(), {"item": on_cpu})
+
+
+def test_sid_gr_entry_points_default_to_cuda():
+    """SID-GR serving lives on the card unless the caller says "cpu"; the
+    beam-decode attention and the two int8 wrappers run their plain versions
+    on CPU tensors and refuse to launch a kernel on them."""
+    import numpy as np
+
+    from recsys_examples_torch.data.sid_batch import random_sid_batch
+    from recsys_examples_torch.inference.sid_serving.engine import (
+        GRServingEngine, ServingConfig)
+    from recsys_examples_torch.inference.sid_serving.item_constraints import TrieConstraint
+    from recsys_examples_torch.models.beam_search import init_beam
+    from recsys_examples_torch.models.sid_gr import SIDGRConfig, SIDGRModel
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.ops import paged_hstu_attention as pa
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+
+    cfg = SIDGRConfig(num_hierarchies=2, codebook_size=8, hidden_size=8, num_layers=1,
+                      num_heads=1, head_dim=8, ffn_hidden=8, beam_width=2)
+    model = SIDGRModel(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    counters = (beam_decode_attn, pa.paged_hstu_delta_attention_int8, ha.hstu_attn_fwd_int8_cuda)
+    before = [c.launches for c in counters]
+    engine = GRServingEngine(model, ServingConfig(beam_width=2, ctx_buckets=(4,),
+                                                  batch_buckets=(1,)))
+    paths, scores = engine.generate([np.array([1, 2, 3, 4])])
+    assert paths.shape == (1, 2, 2) and np.isfinite(scores).all()
+    paths, _ = model.generate_beam_decode(random_sid_batch(0, 2, 3, 2, 8))   # numpy batch
+    assert paths.device.type == "cpu"
+    assert [c.launches for c in counters] == before
+
+    x8 = torch.zeros(4, 1, 32, dtype=torch.int8)
+    opts = ha.AttnOptions(max_seqlen=4, alpha=0.1, scaling_seqlen=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.hstu_attn_fwd_int8_cuda(x8, x8, x8, torch.tensor([0, 4]).int(), None, None, opts, 1.0)
+    pages = torch.zeros(2, 4, 1, 32, dtype=torch.int8)
+    qn = torch.zeros(1, 2, 1, 32, dtype=torch.bfloat16)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_hstu_delta_attention_int8(
+            qn, pages, pages, torch.ones(2, 4, 1), torch.ones(2, 4, 1), i32([0, 1]),
+            i32(3), qn, qn, i32(2), None, 0.1, 8.0)
+    assert [c.launches for c in counters] == before
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SIDGRModel(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrieConstraint(np.array([[0, 1]]), 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_beam(2, 3, 2)
+    assert init_beam(2, 3, 2, device="cpu").scores.device.type == "cpu"
+    # the quantize helpers take no device: they run where their tensors lie
+    assert pa.quantize_kv_pages(pages.float(), pages.float())[2].device.type == "cpu"

@@ -8,7 +8,10 @@ int8 kernel modes at full width through them, and print one JSON summary.
 Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
 Phases (any failure exits non-zero):
-  1. build   nvcc builds every kernel of the path from csrc/, in parallel.
+  1. build   nvcc builds every kernel of the path from csrc/, in parallel;
+             no instance without the bias spills or passes its library's
+             register ceiling. (b) K2/K3's wgmma descriptors and TMA panels,
+             one tile pair per head dim, against torch.matmul.
   2. kernel  paged SiLU delta attention against its plain version in bf16 at
              the serving shapes (H=4, dh=256, page 128, B=8, S in {128, 512},
              ragged cache, with and without targets) and one small odd shape.
@@ -26,13 +29,17 @@ Phases (any failure exits non-zero):
              the plain forward and backward in bf16: H 4 x 256, lengths
              [2000, 37, 1024, 129, 0, 1], max_seqlen 2048, in the mask
              families causal, contextual + targets in groups of 2, window 64
-             (also with a min-full tail), non-causal; and H 2 x 64.
+             (also with a min-full tail), non-causal; H 2 x 64; then K2 and
+             K3's 64-row tile edges (lengths 63-65, 127-129), contextual rows
+             across a tile edge (c 70) with targets, a batch of whole tiles
+             (interior tiles skip the mask), H 2 x 32 and 2 x 128.
   6. train   (a) one GRTrainer step through the kernels and the same step
              with the plain attention, from the same params, at 2 layers,
              batch 8, history 512, on two batches, and a faulted control
              that the comparison must catch; (b) K1-K3 at the full-width batch's
              attention shape against the plain versions run sequence by
-             sequence, then bench.py's ranking train step (8 layers, hidden
+             sequence, K2 and K3 launched twice and equal bit for bit, then
+             bench.py's ranking train step (8 layers, hidden
              1024, 4 x 256, bf16, batch 32, history 4096, all five tables
              static, item/user_id at 1M rows): a warm-up pass over 7
              batches, then 6 timed steps over 6 of them, with step ms, TFLOP/s and MFU from
@@ -165,9 +172,12 @@ def ptxas_entries(report):
 
 # Most registers of any instance without the bias, per library, as built for
 # sm_90a by CUDA 12.8's nvcc (this script's own report); none of them spills.
-# K1-K3 keep what they had before the int8 and beam kernels were added.
-REGISTER_CEILING = {"hstu_attention": 242, "paged_hstu_attention": 128,
-                    "beam_decode_attention": 148}
+# K1 keeps what it had before the int8 and beam kernels were added. K2 and
+# K3 (hstu_attention_bwd) launch 384 threads for one CTA per SM, so ptxas
+# holds them to 168 at entry; setmaxnreg then moves the producer's registers
+# to the two consumer warpgroups (232 each).
+REGISTER_CEILING = {"hstu_attention": 242, "hstu_attention_bwd": 168,
+                    "paged_hstu_attention": 128, "beam_decode_attention": 148}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -177,10 +187,52 @@ def phase_build():
     info = cuda_build.build(list(REGISTER_CEILING))
     for name, i in info.items():
         log(f"phase1 build {name}: {i['seconds']:.1f} s")
+        for line in i["ptxas"].splitlines():
+            if "warning" in line.lower():
+                log(f"  {line.strip()[:200]}")
+                # a warp-specialised kernel whose setmaxnreg is dropped runs
+                # its consumers in 168 registers
+                if "setmaxnreg" in line:
+                    raise SystemExit(f"phase1: {name}: {line.strip()}")
         for entry, regs, spill in ptxas_entries(i["ptxas"]):
             log(f"  ptxas {entry}: {regs} registers, {spill} bytes spilled")
             if "rab" not in entry and (regs > REGISTER_CEILING[name] or spill):
                 raise SystemExit(f"phase1: {entry} grew to {regs} registers, {spill} spilled")
+
+
+def phase_tile_check():
+    """1b. K2/K3's wgmma descriptors and TMA panel layouts, each by itself: the
+    kernels' two product chains on one TMA-loaded tile pair per head dim (the
+    score chain K-major, from the columns w * 32 of two consumers; the output
+    chain MN-major from a thread-written product tile, from the columns
+    w * dh/2) against torch.matmul in fp32. Products of bf16 values are exact
+    in fp32, so only the order of the sums differs."""
+    import ctypes
+
+    from recsys_examples_torch.utils import cuda_build
+
+    fn = cuda_build.load("hstu_attention_bwd").hstu_bwd_tile_check_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
+    for dh in (32, 64, 128, 256):
+        a, b, pm = r(64, dh), r(64, dh), r(64, 64)
+        s = torch.full((64, 64), float("nan"), device="cuda")
+        o = torch.full((64, dh), float("nan"), device="cuda")
+        err = fn(a.data_ptr(), b.data_ptr(), pm.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err:
+            raise SystemExit(f"phase1b dh={dh}: launch failed with error {err}")
+        for tag, got, want in (("score (K-major)", s, a.float() @ b.float().T),
+                               ("output (MN-major)", o, pm.float() @ b.float())):
+            e = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            log(f"phase1b dh={dh} {tag}: max_abs_err={e:.3e} max|ref|={scale:.3e} "
+                f"tol={1e-4 * scale:.3e}")
+            if not e < 1e-4 * scale:
+                raise SystemExit(f"phase1b dh={dh}: the {tag} chain disagrees with torch.matmul")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -391,10 +443,17 @@ def phase_main(attn):
     return runner, dict(cold_ms=cold_ms, warm_ms=warm_ms, launches=launches)
 
 
-def profile_call(fn, label, top=10, groups=None):
+# The training attention kernels by name: K1 and K4 (hstu_attention.cu),
+# K2 and K3 (hstu_attention_bwd.cu).
+ATTN_KERNELS = {"K1": "fwd_kernel", "K2": "dq_wgmma_kernel", "K3": "dkv_wgmma_kernel"}
+ATTN_NAMES = ("fwd_kernel", "wgmma_kernel", "rab_kernel")
+
+
+def profile_call(fn, label, top=10, groups=None, split=None):
     """Device time of one call by kernel name (torch.profiler), and the
     share of the call's wall time the device was busy. `groups`: kind ->
-    substrings of kernel names, for a breakdown by kind."""
+    substrings of kernel names, for a breakdown by kind; `split`: label ->
+    one kernel's name substring, for its device ms and launches apart."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -419,6 +478,11 @@ def profile_call(fn, label, top=10, groups=None):
                      "other")
             totals[g] += e.self_device_time_total / 1e3
         log("  by kind: " + ", ".join(f"{g} {ms:.2f} ms" for g, ms in totals.items()))
+    if split:
+        hits = {k: [e for e in events if key in e.key] for k, key in split.items()}
+        log("  by kernel: " + ", ".join(
+            f"{k} {sum(e.self_device_time_total for e in h) / 1e3:.3f} ms "
+            f"x{sum(e.count for e in h)}" for k, h in hits.items()))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -620,6 +684,19 @@ def phase_jagged():
     res["odd_h2_dh64"] = check_jagged_case(
         "odd_h2_dh64", gen, [77, 0, 300, 5], 2, 64, 320,
         dict(target_group_size=3), [2, 0, 1, 0], [9, 0, 31, 2])
+    # K2 and K3 at their 64-row tile edges; contextual rows across a tile
+    # edge (c = 70) with targets; a batch of whole tiles without targets
+    # (every tile below the diagonal skips the mask); head dims 32 and 128
+    res["tile_edges"] = check_jagged_case(
+        "tile_edges", gen, [63, 64, 65, 127, 128, 129], H, dh, 256, {})
+    res["ctx70_tgt"] = check_jagged_case(
+        "ctx70_tgt", gen, [300, 129, 200, 70], H, dh, 320, dict(target_group_size=2),
+        [70, 70, 3, 70], [16, 0, 40, 0])
+    res["interior"] = check_jagged_case("interior", gen, [512, 256, 1024], H, dh, 1024, {})
+    for d in (32, 128):
+        res[f"odd_h2_dh{d}"] = check_jagged_case(
+            f"odd_h2_dh{d}", gen, [77, 0, 300, 5, 129], 2, d, 320,
+            dict(target_group_size=3), [2, 0, 70, 0, 1], [9, 0, 31, 2, 3])
     return res
 
 
@@ -784,6 +861,14 @@ def main_shape_kernels(batch, with_rab=False, tag="phase6"):
     else:
         ms = {kk: cuda_time_ms(f, 5) for kk, f in fns.items()}
 
+    if not with_rab:   # K2 and K3 own their output rows: no order in their sums
+        again = [fns["dq"](), *fns["dkv"]()]
+        same = [torch.equal(a, b) for a, b in zip(got[1:], again)]
+        log(f"{tag} main-shape determinism: a second launch of K2 and K3 equals the first "
+            f"bit for bit: dq {same[0]}, dk {same[1]}, dv {same[2]}")
+        if not all(same):
+            raise SystemExit(f"{tag}: K2 or K3 differs between two launches on the same inputs")
+        del again
     names = ("out", "dq", "dk", "dv") + (("drab",) if with_rab else ())
     errs = dict.fromkeys(names, 0.0)
     scales = dict.fromkeys(errs, 0.0)
@@ -830,7 +915,8 @@ def main_shape_kernels(batch, with_rab=False, tag="phase6"):
             + f"plain_ms(per sequence)={res['plain_ms'][kk]:.2f} "
             f"bound_ms={res['bound'][kk][0]:.4f} ({res['bound'][kk][1]}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
-            f"{flops / ms[kk] / 1e9:.1f} TFLOP/s)")
+            f"{flops / ms[kk] / 1e9:.1f} TFLOP/s, "
+            f"{100 * res['bound'][kk][0] / ms[kk]:.1f}% of the bound)")
     return res
 
 
@@ -989,8 +1075,9 @@ def phase_train():
         f"(hstu_flops_exact against {H100_PEAK_TFLOPS:.0f})")
     log(f"phase6b peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_call(lambda: trainer.train_step(state, batches[1]),
-                 "phase6b profile of one train step", top=20, groups={
-                     "attention K1-K3": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+                 f"phase6b profile of one train step ({tokens[0]} tokens)", top=20,
+                 split=ATTN_KERNELS, groups={
+                     "attention K1-K3": ATTN_NAMES,
                      "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
                      "gather/scatter": ("index", "scatter", "gather"),
                      "optimizer": ("multi_tensor", "adam"),
@@ -1212,9 +1299,11 @@ def phase_step(rab):
                        "token_capacity": max(tokens),
                        "mean_capacity": round(statistics.mean(tokens), 1),
                        "batch_pool": len(batches), "backend": "cuda"}}), flush=True)
-    profile_call(lambda: trainer.train_step(state, batches[1]),
-                 f"{tag} profile of one train step", top=20, groups={
-                     "attention": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+    profile_call(
+        lambda: trainer.train_step(state, batches[1]),
+        f"{tag} profile of one train step ({tokens[0]} tokens)", top=20,
+        split=None if rab else ATTN_KERNELS, groups={
+                     "attention": ATTN_NAMES,
                      "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
                      "gather/scatter": ("index", "scatter", "gather"),
                      "sort": ("sort", "radix"),
@@ -1827,6 +1916,7 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
 
     phase_build()
+    phase_tile_check()
 
     res = {"paged": phase_kernel(attn)}
     runner, res["serve"] = phase_main(attn)
@@ -1866,7 +1956,8 @@ def main():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "recsys_examples_torch/csrc/hstu_attention.cu",
+            "source": "recsys_examples_torch/csrc/"
+                      + ("hstu_attention.cu" if kk == "fwd" else "hstu_attention_bwd.cu"),
             "replaces": f"recsys_examples_tpu/ops/pallas/hstu_attention.py:{line}",
             "launches": launches_9a[i],     # bench.py's step, phase 9a
             "max_abs_err": max([train["errs"][t] for t in tags]

@@ -1,7 +1,8 @@
 // Jagged SiLU (HSTU) attention for training, for Hopper (sm_90a): the
-// forward (K1), dq (K2) and dk/dv (K3), and the same three with a dense
-// relative attention bias added to the scores (K4: forward, dq + drab,
-// dk/dv).
+// forward (K1), and the forward, dq and dk/dv with a dense relative
+// attention bias added to the scores (K4: forward, dq + drab, dk/dv). The
+// bias-free dq (K2) and dk/dv (K3) are the wgmma kernels of
+// hstu_attention_bwd.cu; the formulas below are theirs too.
 //
 // Replaces the TPU kernels of recsys_examples_tpu/ops/pallas/hstu_attention.py:
 // K1 `_fwd_kernel` (launched by `_hstu_fwd_impl`), K2 `_bwd_dq_kernel` and
@@ -24,8 +25,9 @@
 // positions local to the sequence):
 //   S = alpha q k^T + rab,  dS_rab = dP * dsilu(S) * mask / scaling,
 //   dS = alpha dS_rab,      drab += dS_rab
-// The three kernels are the RAB = true instances of K1-K3's templates: each
-// thread reads the bias of the score elements it holds before the tile's
+// K4's forward is the RAB = true instance of K1's template, its dq and dk/dv
+// kernels the mma.sync templates that K2 and K3 ran before their wgmma
+// redesign, with the bias read in: each thread reads the bias of the score elements it holds before the tile's
 // products, so the loads fly behind the tensor-core work. drab is an fp32
 // tensor of rab's shape that the caller zero-fills; the dq kernel adds
 // dS_rab of its valid (row, col) pairs into it. A cell of a broadcast dim is
@@ -69,14 +71,14 @@
 // of the 64 x 32 score tile, applies mask and silu in registers and writes
 // its bf16 product tile to shared memory; then each warp accumulates 16 rows
 // x DH/2 columns of the output product.
-//   K1, K2: one CTA per (64 query rows, head, sequence), walking the key
+//   K1, K4 dq: one CTA per (64 query rows, head, sequence), walking the key
 //   tiles the mask can reach (`_kv_extent`: causal rows stop at their
 //   diagonal, a tile that holds contextual rows goes to the end). The last
 //   tiles of a sequence, which walk furthest, are launched first.
-//   K3: one CTA per (64 key rows, head, sequence), walking the query tiles
+//   K4 dk/dv: one CTA per (64 key rows, head, sequence), walking the query tiles
 //   that reach it: the causal range from the key tile on, plus the tiles of
 //   the contextual rows at the start of the sequence. It owns its dk and dv
-//   rows, so both backward kernels are deterministic (no atomics).
+//   rows, so dk and dv are deterministic (no atomics).
 // Not done yet: wgmma/TMA, warp specialisation, skipping the mask on
 // interior tiles, and skipping tiles the max_attn_len window cannot reach.
 
@@ -84,6 +86,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hstu_mask.cuh"
 #include "sm90_mma.cuh"
 
 namespace {
@@ -122,59 +125,6 @@ struct Rab {
     if (!grad) return;   // the bias takes no gradient
     float* dst = grad + plane + (size_t)row * nk + col;
     if (atomic) atomicAdd(dst, g); else *dst = g;
-  }
-};
-
-struct Params {
-  const int* seq_offsets;       // [B + 1]
-  const int* num_contextuals;   // [B] or null
-  const int* num_targets;       // [B] or null
-  int H;
-  float alpha, inv_scaling;
-  int causal, group, max_attn_len, min_full;
-};
-
-// One sequence: its first packed row, length, contextual and target counts.
-struct Seq {
-  int off, n, c, t;
-  bool has_ctx, has_tgt;
-  __device__ Seq(const Params& p, int b) {
-    off = p.seq_offsets[b];
-    n = p.seq_offsets[b + 1] - off;
-    has_ctx = p.num_contextuals != nullptr;
-    has_tgt = p.num_targets != nullptr;
-    c = has_ctx ? p.num_contextuals[b] : 0;
-    t = has_tgt ? p.num_targets[b] : 0;
-  }
-  // `_compute_mask` for query row `row` and key column `col` (positions in
-  // the sequence)
-  __device__ bool valid(const Params& p, int row, int col) const {
-    if (row >= n || col >= n) return false;
-    const int row_ids = max(row - c + 1, 0), col_ids = max(col - c + 1, 0);
-    int dist = row_ids - col_ids;
-    if (!p.causal) dist = abs(dist);
-    bool ok = row == col || dist > 0;
-    const int max_id = n - c + 1;
-    int hist_max = max_id;
-    if (has_tgt) {
-      // floor division of values >= -1
-      const int xr = max(row_ids - max_id + t, -1), xc = max(col_ids - max_id + t, -1);
-      const int gr = xr < 0 ? -1 : xr / p.group, gc = xc < 0 ? -1 : xc / p.group;
-      ok = ok && (gr == gc || gr < 0 || gc < 0);
-      hist_max = max_id - t;
-    }
-    if (p.max_attn_len > 0) {
-      bool win = dist <= p.max_attn_len;
-      if (p.min_full > 0) win = win || row_ids >= hist_max - p.min_full;
-      ok = ok && win;
-    }
-    if (has_ctx) ok = ok || (row_ids == 0 && col_ids < hist_max);
-    return ok;
-  }
-  // `_kv_extent`: how far into the keys the query tile [q0, q0 + BT) looks
-  __device__ int kv_end(const Params& p, int q0) const {
-    if (!p.causal || (has_ctx && q0 < c)) return n;
-    return min(n, q0 + BT);
   }
 };
 
@@ -334,7 +284,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rb = warp % 4, hf = warp / 4;
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
-  const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
+  const int n_tiles = (s.kv_end(p, m0, BT) + BS - 1) / BS;
   const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
 
   float o[DH / 16][4] = {};
@@ -430,7 +380,7 @@ fwd_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   const int rb = warp % 4, hf = warp / 4;
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
-  const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
+  const int n_tiles = (s.kv_end(p, m0, BT) + BS - 1) / BS;
 
   float o[DH / 16][4] = {};
   load_tile_i8<DH>(rK, k + base, ld, 0, s.n);
@@ -487,18 +437,19 @@ fwd_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   store_rows<DH>(out + base, ld, o, m0, s.n, rb, hf, lane);
 }
 
-// ------------------------------------------------------------ K2: dq
+// ------------------------------------------------------------ K4: dq + drab
+// (the bias-free K2 and K3 are hstu_attention_bwd.cu's wgmma kernels)
 template <int DH>
 constexpr size_t dq_smem() {
   using L = Layout<DH>;
   return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + L::PTILE);
 }
 
-template <int DH, bool RAB>
+template <int DH>
 __global__ void __launch_bounds__(NT, 1)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          bf16* __restrict__ dq, Params p, Rab rab) {
+dq_rab_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              bf16* __restrict__ dq, Params p, Rab rab) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
@@ -514,9 +465,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rb = warp % 4, hf = warp / 4;
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
-  const int n_tiles = (s.kv_end(p, m0) + BS - 1) / BS;
-  const float ds_scale = p.inv_scaling * p.alpha;
-  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
+  const int n_tiles = (s.kv_end(p, m0, BT) + BS - 1) / BS;
+  const size_t plane = rab.plane(blockIdx.z, blockIdx.y);
 
   float acc[DH / 16][4] = {};
   load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);
@@ -539,8 +489,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* v_s = sV + buf * L::STREAM;
 
     float sc[2][4], dp[2][4], bias[2][4];
-    if constexpr (RAB)
-      load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
+    load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
     score_block<DH>(sc, sQ, k_s, rb, hf, lane);
     score_block<DH>(dp, sO, v_s, rb, hf, lane);
 #pragma unroll
@@ -550,18 +499,12 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = m0 + blk_row(rb, lane, e), col = ci * BS + blk_col(hf, lane, j, e);
         const bool ok = s.valid(p, row, col);
-        float x = sc[j][e] * p.alpha;
-        if constexpr (RAB) {
-          x += bias[j][e];
-          const float sg = sigmoid(x);
-          // the bias enters the score with factor 1, q k^T with alpha
-          const float g = ok ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * p.inv_scaling : 0.f;
-          if (ok) rab.add_grad(plane, row, col, g);
-          ds[e] = g * p.alpha;
-        } else {
-          const float sg = sigmoid(x);
-          ds[e] = ok ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * ds_scale : 0.f;
-        }
+        const float x = sc[j][e] * p.alpha + bias[j][e];
+        const float sg = sigmoid(x);
+        // the bias enters the score with factor 1, q k^T with alpha
+        const float g = ok ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * p.inv_scaling : 0.f;
+        if (ok) rab.add_grad(plane, row, col, g);
+        ds[e] = g * p.alpha;
       }
       put_block<DH>(sS, rb, hf, lane, j, ds);
     }
@@ -572,18 +515,18 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<DH>(dq + base, ld, acc, m0, s.n, rb, hf, lane);
 }
 
-// ------------------------------------------------------------ K3: dk, dv
+// ------------------------------------------------------------ K4: dk, dv
 template <int DH>
 constexpr size_t dkv_smem() {
   using L = Layout<DH>;
   return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + 2 * L::PTILE);
 }
 
-template <int DH, bool RAB>
+template <int DH>
 __global__ void __launch_bounds__(NT, 1)
-dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           bf16* __restrict__ dk, bf16* __restrict__ dv, Params p, Rab rab) {
+dkv_rab_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, Params p, Rab rab) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
@@ -601,29 +544,19 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
   const float ds_scale = p.inv_scaling * p.alpha;
-  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
-
-  // query tiles that reach keys [n0, n0 + BT): when causal, the tiles of the
-  // contextual rows [0, c), then the tiles from the key tile on; else all
-  const int n_q = (s.n + BS - 1) / BS;
-  int n_ctx = 0, first = 0;
-  if (p.causal) {
-    n_ctx = s.has_ctx ? (min(max(s.c, 0), s.n) + BS - 1) / BS : 0;
-    first = max(n0 / BS, n_ctx);
-  }
-  const int n_tiles = n_ctx + n_q - first;
-  auto q_row0 = [&](int ci) { return (ci < n_ctx ? ci : first + ci - n_ctx) * BS; };
+  const size_t plane = rab.plane(blockIdx.z, blockIdx.y);
+  const QueryTiles tiles(p, s, n0, BS);   // the 32-row query tiles that reach these keys
 
   float dka[DH / 16][4] = {}, dva[DH / 16][4] = {};
   load_tile<DH, BT>(sK, k + base, ld, n0, s.n);
   load_tile<DH, BT>(sV, v + base, ld, n0, s.n);
-  load_tile<DH, BS>(sQ, q + base, ld, q_row0(0), s.n);
-  load_tile<DH, BS>(sO, dout + base, ld, q_row0(0), s.n);
+  load_tile<DH, BS>(sQ, q + base, ld, tiles.row0(0), s.n);
+  load_tile<DH, BS>(sO, dout + base, ld, tiles.row0(0), s.n);
   cp_async_commit();
-  for (int ci = 0; ci < n_tiles; ++ci) {
+  for (int ci = 0; ci < tiles.count; ++ci) {
     const int buf = ci & 1;
-    if (ci + 1 < n_tiles) {
-      const int r1 = q_row0(ci + 1);
+    if (ci + 1 < tiles.count) {
+      const int r1 = tiles.row0(ci + 1);
       load_tile<DH, BS>(sQ + (buf ^ 1) * L::STREAM, q + base, ld, r1, s.n);
       load_tile<DH, BS>(sO + (buf ^ 1) * L::STREAM, dout + base, ld, r1, s.n);
       cp_async_commit();
@@ -634,12 +567,11 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const bf16* q_s = sQ + buf * L::STREAM;
     const bf16* o_s = sO + buf * L::STREAM;
-    const int q0 = q_row0(ci);
+    const int q0 = tiles.row0(ci);
 
     // transposed scores: rows are keys, columns queries
     float st[2][4], dpt[2][4], bias[2][4];
-    if constexpr (RAB)
-      load_bias(bias, rab, plane, s.n, n0, q0, rb, hf, lane, true);
+    load_bias(bias, rab, plane, s.n, n0, q0, rb, hf, lane, true);
     score_block<DH>(st, sK, q_s, rb, hf, lane);
     score_block<DH>(dpt, sV, o_s, rb, hf, lane);
 #pragma unroll
@@ -647,8 +579,7 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float pv[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = st[j][e] * p.alpha;
-        if constexpr (RAB) x += bias[j][e];
+        const float x = st[j][e] * p.alpha + bias[j][e];
         const float sg = sigmoid(x);
         const bool ok =
             s.valid(p, q0 + blk_col(hf, lane, j, e), n0 + blk_row(rb, lane, e));
@@ -700,6 +631,16 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
     case 256: { constexpr int DH = 256; HSTU_DISPATCH_RAB(CALL) }     \
     default: return -1;                                               \
   }
+// the backward kernels of K4 only: without a bias, -1
+#define HSTU_DISPATCH_DH_RAB(dh, CALL)                                \
+  if (!r.ptr) return -1;                                              \
+  switch (dh) {                                                       \
+    case 32: { constexpr int DH = 32; return CALL; }                  \
+    case 64: { constexpr int DH = 64; return CALL; }                  \
+    case 128: { constexpr int DH = 128; return CALL; }                \
+    case 256: { constexpr int DH = 256; return CALL; }                \
+    default: return -1;                                               \
+  }
 
 }  // namespace
 
@@ -709,7 +650,9 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
 // [rb, rh, nq, nk] with `rab_sb` / `rab_sh` elements between batches / heads
 // (0 for a broadcast dim) and `rab_nk` between rows; the dq kernel adds the
 // bias gradient into the zero-filled fp32 `drab` of the same layout, with
-// atomics when `drab_atomic`. Each returns the CUDA error code of its launch
+// atomics when `drab_atomic`. The two backward launchers take a bias only
+// (without one they return -1: the bias-free K2 and K3 are
+// hstu_attention_bwd.cu's). Each returns the CUDA error code of its launch
 // (0 on success) or -1 for an unsupported head dim or group size.
 #define HSTU_COMMON_ARGS                                                         \
   const int *seq_offsets, const int *num_contextuals, const int *num_targets,    \
@@ -744,7 +687,7 @@ extern "C" int hstu_attn_bwd_dq_launch(const void* q, const void* k, const void*
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
   bf16* dQ = static_cast<bf16*>(dq);
-  HSTU_DISPATCH_DH(dh, launch(dq_kernel<DH, RAB>, dq_smem<DH>(), grid, st, Q, K, V, dO, dQ, p, r))
+  HSTU_DISPATCH_DH_RAB(dh, launch(dq_rab_kernel<DH>, dq_smem<DH>(), grid, st, Q, K, V, dO, dQ, p, r))
 }
 
 extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void* v,
@@ -754,8 +697,8 @@ extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
   bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
-  HSTU_DISPATCH_DH(dh, launch(dkv_kernel<DH, RAB>, dkv_smem<DH>(), grid, st, Q, K, V,
-                              dO, dK, dV, p, r))
+  HSTU_DISPATCH_DH_RAB(dh, launch(dkv_rab_kernel<DH>, dkv_smem<DH>(), grid, st, Q, K, V,
+                                  dO, dK, dV, p, r))
 }
 
 // K5: int8 q, k, v [T, H, dh], `alpha` already times q_scale * k_scale, the

@@ -1,0 +1,278 @@
+// Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
+// wgmma shared-memory descriptors and the bf16 m64nNk16 product, its fence /
+// commit / wait, the TMA tensor map and its 2-D tile load, the mbarrier
+// full/empty ring, named barriers and setmaxnreg.
+//
+// Tile layout. A [64][D] bf16 tile arrives by TMA as D / PW panels of
+// [64 rows][PW columns], PW = 64 (128-byte rows, 128-byte swizzle) or, for
+// D = 32, PW = 32 (64-byte rows, 64-byte swizzle). Panel i holds columns
+// i*PW .. i*PW + PW - 1 at byte offset i * 64 * 2PW. Inside a panel, row r's
+// 16-byte chunk j lies at r * 2PW + 16 * (j ^ f(r)), with f(r) = r % 8 for
+// the 128-byte swizzle and (r / 2) % 4 for the 64-byte one; the swizzle acts
+// on address bits, so every panel starts on a 1024-byte boundary.
+//
+// The two ways wgmma reads such a tile (cute's canonical GMMA layouts):
+//  - K-major (the reduction index runs along a row): start = the k-slice's
+//    byte offset in the row (k0 * 2 % 2PW, in panel k0 / PW); SBO = 8 rows =
+//    8 * 2PW bytes between 8-row groups; LBO unused. Advancing k within the
+//    swizzle row adds 32 bytes per 16 elements to the start address.
+//  - MN-major (the output index runs along a row; the B operand read with
+//    its transpose bit): start = row k0, column n0 of the panel holding n0;
+//    LBO = the panel size (the next PW output columns), SBO = 8 rows (the
+//    next 8 k).
+// A [64][64] product tile that a kernel writes itself (P, dS) uses the
+// 128-byte swizzle with 128-byte rows: `swz128`.
+//
+// wgmma accumulator layout (m64nN, fp32, thread t of the warpgroup, element
+// i of N/2): row (t / 32) * 16 + (t % 32) / 4 + 8 * ((i / 2) % 2), column
+// 8 * (i / 4) + 2 * (t % 4) + i % 2.
+#pragma once
+
+#include <cuda.h>            // CUtensorMap and its enums (types only: libcuda is not linked)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90_mma.cuh"
+
+namespace sm90 {
+
+// ------------------------------------------------------------ descriptors
+enum : int { SW128 = 1, SW64 = 2 };   // the descriptor's layout_type
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// Byte offset of element (r, c) in a [rows][64] bf16 tile with 128-byte rows
+// and the 128-byte swizzle.
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+}
+
+__device__ __forceinline__ int acc_row(int t, int i) {
+  return (t >> 5) * 16 + ((t & 31) >> 2) + ((i >> 1) & 1) * 8;
+}
+__device__ __forceinline__ int acc_col(int t, int i) {
+  return (i >> 2) * 8 + (t & 3) * 2 + (i & 1);
+}
+
+// ------------------------------------------------------------ wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keep the compiler from moving reads of accumulators across a wait (or
+// their initialisation past the first product).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define SM90_F8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x N] (+)= A[64 x 16] . B[16 x N] in bf16 with fp32 sums; A and B
+// from shared memory through their descriptors; TB = 1 reads B MN-major.
+// `acc` 0 overwrites d.
+template <int N, int TB>
+struct Wgmma;
+
+template <int TB>
+struct Wgmma<16, TB> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, %11;\n}\n"
+        : SM90_F8(0)
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct Wgmma<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : SM90_F8(0), SM90_F8(8)
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct Wgmma<64, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct Wgmma<128, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32), SM90_F8(40),
+          SM90_F8(48), SM90_F8(56)
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+#undef SM90_F8
+
+// ------------------------------------------------------------ TMA, mbarrier
+// Copy the box at (c0 = column, c1 = row) of `map` into shared memory at
+// `dst`; the bytes arrive on `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// after the inits, before any thread uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival that also expects `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+}
+
+// A ring of STAGES buffers with full (producer -> consumers: the TMA bytes
+// landed) and empty (consumers -> producer: the buffer was read) barriers.
+// Use i of the ring is buffer i % STAGES in round i / STAGES; the producer's
+// first round finds every buffer empty.
+template <int STAGES>
+struct Ring {
+  uint64_t full[STAGES], empty[STAGES];
+  __device__ void init(int consumers) {   // one thread
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+  }
+  __device__ void producer_acquire(int i, uint32_t bytes) {
+    mbar_wait(&empty[i % STAGES], ((i / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[i % STAGES], bytes);
+  }
+  __device__ void consumer_wait(int i) { mbar_wait(&full[i % STAGES], (i / STAGES) & 1); }
+  __device__ void consumer_release(int i) { mbar_arrive(&empty[i % STAGES]); }
+};
+
+// ------------------------------------------------------------ warpgroups
+// Shared-memory writes of the generic proxy (st.shared), made visible to the
+// async proxy (wgmma, TMA) before a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+template <int THREADS>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// ------------------------------------------------------------ host: tensor maps
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: fetched through the runtime,
+// so the library does not link libcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a bf16 matrix [rows][cols] (`ld` elements between rows) read in
+// boxes of box_rows x box_cols, box_cols * 2 bytes being the swizzle span
+// (128 or 64). Rows and columns past the matrix read as zero. Returns 0, or
+// -2 without the driver entry point, -3 if the driver refuses the map.
+inline int make_tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                         uint64_t ld, uint32_t box_rows, uint32_t box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return -2;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle sw =
+      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+}  // namespace sm90

@@ -7,8 +7,9 @@ q, k, v and `seq_offsets [B+1]`, as the original `hstu_attn_varlen_func`
 takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv); with
 a relative attention bias `rab` the three kernels of K4 run instead (forward,
 dq + drab, dk/dv):
-  - CUDA tensors launch the hand-written kernels of `csrc/hstu_attention.cu`
-    (bf16, head dims 32/64/128/256) or raise;
+  - CUDA tensors launch the hand-written kernels (bf16, head dims
+    32/64/128/256) or raise: K1 and K4 from `csrc/hstu_attention.cu`, K2 and
+    K3 (wgmma, TMA, warp-specialised) from `csrc/hstu_attention_bwd.cu`;
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
 Each kernel wrapper counts its launches in `.launches`.
 
@@ -62,13 +63,17 @@ _ENTRIES = {
     "hstu_attn_bwd_dq_launch": 5,     # q, k, v, dO, dq
     "hstu_attn_bwd_dkv_launch": 6,    # q, k, v, dO, dk, dv
 }
+# csrc/hstu_attention_bwd.cu's K2 and K3: no bias; T rows for the TMA maps
+_BWD_COMMON = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _fn(entry: str):
+def _fn(entry: str, lib: str = "hstu_attention"):
     from recsys_examples_torch.utils import cuda_build
 
-    fn = getattr(cuda_build.load("hstu_attention"), entry)
-    fn.argtypes = [ctypes.c_void_p] * _ENTRIES[entry] + _COMMON
+    fn = getattr(cuda_build.load(lib), entry)
+    fn.argtypes = [ctypes.c_void_p] * _ENTRIES[entry] + (
+        _COMMON if lib == "hstu_attention" else _BWD_COMMON)
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,7 +117,7 @@ def _rab_args(rab, drab, B, H, opts: AttnOptions, dev):
 
 def _check_operands(entry, tensors, dtype, seq_offsets, num_contextuals, num_targets,
                     opts: AttnOptions):
-    """What every kernel of `csrc/hstu_attention.cu` asks of its operands.
+    """What every kernel of `csrc/hstu_attention*.cu` asks of its operands.
     Returns (B, H, dh, device)."""
     T, H, dh = tensors[0].shape
     B = seq_offsets.shape[0] - 1
@@ -153,6 +158,27 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
         raise RuntimeError(f"{entry} failed: error {err}")
 
 
+def _launch_bwd(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
+                opts: AttnOptions):
+    """Check the operands and launch K2 or K3 (`entry` of
+    `csrc/hstu_attention_bwd.cu`) on the current stream."""
+    B, H, dh, dev = _check_operands(entry, tensors, torch.bfloat16, seq_offsets,
+                                    num_contextuals, num_targets, opts)
+    fn = _fn(entry, "hstu_attention_bwd")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = fn(
+            *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
+            seq_offsets.data_ptr(), ptr(num_contextuals), ptr(num_targets),
+            tensors[0].shape[0], B, H, dh, opts.max_seqlen, float(opts.alpha),
+            1.0 / float(opts.scaling_seqlen), int(opts.causal),
+            opts.target_group_size, opts.max_attn_len, opts.min_full_attn_seq_len,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: error {err}")
+
+
 def hstu_attn_fwd_cuda(q, k, v, seq_offsets, num_contextuals, num_targets,
                        opts: AttnOptions) -> torch.Tensor:
     """K1. Rows no sequence owns come out zero."""
@@ -167,8 +193,8 @@ def hstu_attn_bwd_dq_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                           num_targets, opts: AttnOptions) -> torch.Tensor:
     """K2."""
     dq = torch.zeros_like(q)
-    _launch("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
-            num_contextuals, num_targets, opts)
+    _launch_bwd("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
+                num_contextuals, num_targets, opts)
     hstu_attn_bwd_dq_cuda.launches += 1
     return dq
 
@@ -178,8 +204,8 @@ def hstu_attn_bwd_dkv_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3."""
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    _launch("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
-            num_contextuals, num_targets, opts)
+    _launch_bwd("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
+                num_contextuals, num_targets, opts)
     hstu_attn_bwd_dkv_cuda.launches += 1
     return dk, dv
 

@@ -1,12 +1,14 @@
 """Plain (dense-padded) HSTU attention with the full mask zoo, forward and
 backward (counterpart of recsys_examples_tpu/ops/hstu_attention_ref.py).
 
-These are the plain versions of the CUDA kernels K1 (forward), K2 (dq) and
-K3 (dk/dv) in `csrc/hstu_attention.cu`, with `rab` of K4 (the same three
+These are the plain versions of the CUDA kernels K1 (forward) in
+`csrc/hstu_attention.cu`, K2 (dq) and K3 (dk/dv) in
+`csrc/hstu_attention_bwd.cu`, with `rab` of K4 (the same three
 with a relative attention bias, and its gradient), and of K5 (the int8
 forward, `hstu_mha_int8_reference`): the CPU path of
 `ops.hstu_attention.hstu_attn_varlen`, and what `chip_smoke.py` holds the
-kernels against on the card.
+kernels against on the card. Beside them stand the plain statements of
+K2's and K3's tile plan.
 
 HSTU attention is SiLU attention, not softmax:
 
@@ -84,6 +86,68 @@ def get_valid_attn_mask(
         # contextual rows (position 0) attend to the full valid sequence
         valid = valid | ((row_ids == 0) & (col_ids < max_ids))
     return valid
+
+
+# ------------------------------------------------------------ tile plan
+# The plain statements of K2's and K3's tile plan (csrc/hstu_mask.cuh is a
+# line-by-line copy): which tiles a CTA visits, and which of them need no
+# mask or only its causal form. Positions are local to one sequence of
+# length n with c contextual and t target rows (0 when absent); every tile
+# has BWD_TILE rows.
+BWD_TILE = 64
+
+
+def tile_fully_valid(q0: int, k0: int, n: int, c: int, t: int, rows: int = BWD_TILE, *,
+                     causal: bool, max_attn_len: int) -> bool:
+    """Every pair of query rows [q0, q0 + rows) and key columns [k0, k0 +
+    rows) is valid, so the tile skips the mask: JAX's `_tile_fully_valid`
+    (causal, no window, the tile below the diagonal, every row inside the
+    sequence, every column a history column), with one more guard, c <= n -
+    t: where contextual and target rows overlap, a contextual row no longer
+    sees the history, and JAX's predicate would certify an invalid pair."""
+    if not causal or max_attn_len > 0:
+        return False
+    n_cols = n - t
+    return q0 >= k0 + rows - 1 and q0 + rows <= n and k0 + rows <= n_cols and c <= n_cols
+
+
+def causal_edge(n: int, c: int, *, causal: bool, has_targets: bool,
+                max_attn_len: int) -> bool:
+    """Whether the mask of an edge tile reduces to `causal_edge_valid`:
+    causal, no targets, no window and 0 <= c <= n (`bench.py`'s
+    configuration)."""
+    return causal and not has_targets and max_attn_len == 0 and 0 <= c <= n
+
+
+def causal_edge_valid(row, col, n: int, c: int):
+    """`_compute_mask` under `causal_edge`: both inside the sequence, and the
+    key on or before the query or the query a contextual row (positions as
+    ints or numpy arrays)."""
+    return (row < n) & (col < n) & ((row >= col) | (row < c))
+
+
+def kv_tile_end(q0: int, n: int, c: int, rows: int = BWD_TILE, *, causal: bool,
+                has_context: bool) -> int:
+    """K2: how far into the keys the query tile [q0, q0 + rows) looks (JAX's
+    `_kv_extent`): causal rows stop at their diagonal, a tile holding
+    contextual rows goes to the end."""
+    if not causal or (has_context and q0 < c):
+        return n
+    return min(n, q0 + rows)
+
+
+def dkv_query_tiles(k0: int, n: int, c: int, rows: int = BWD_TILE, *, causal: bool,
+                    has_context: bool) -> list:
+    """K3: the first rows of the query tiles that reach key tile [k0, k0 +
+    rows), in the order the kernel walks them. When causal: the tiles of the
+    contextual rows [0, c), then the tiles from the key tile on; else all."""
+    n_q = -(-n // rows)
+    n_ctx, first = 0, 0
+    if causal:
+        n_ctx = -(-min(max(c, 0), n) // rows) if has_context else 0
+        first = max(k0 // rows, n_ctx)
+    return [(i if i < n_ctx else first + i - n_ctx) * rows
+            for i in range(n_ctx + n_q - first)]
 
 
 def _padded(x: torch.Tensor, seq_offsets: torch.Tensor, N: int) -> torch.Tensor:

@@ -1,0 +1,177 @@
+"""The tile plan of the backward kernels K2 (dq) and K3 (dk/dv): the plain
+statements in `ops/hstu_attention_ref.py` that `csrc/hstu_mask.cuh` copies
+line by line. Held against the dense mask of `get_valid_attn_mask` (a tile
+certified interior is all valid; the tiles a CTA visits cover every valid
+pair) and against the JAX kernel's own `_tile_fully_valid` and `_kv_extent`
+on the same scalars."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from recsys_examples_torch.ops.hstu_attention_ref import (
+    BWD_TILE,
+    causal_edge,
+    causal_edge_valid,
+    dkv_query_tiles,
+    get_valid_attn_mask,
+    kv_tile_end,
+    tile_fully_valid,
+)
+from recsys_examples_tpu.ops.pallas.hstu_attention import _kv_extent, _tile_fully_valid
+
+
+@st.composite
+def sequences(draw, overlap=True):
+    """One sequence and a mask family: length 0-300, contextual rows, targets
+    in groups of 1-3, causal or not, a window with or without a min-full
+    tail, and a tile height (the kernels' 64, or smaller to visit more
+    tiles). Without `overlap`, contextual and target rows fit in n."""
+    n = draw(st.integers(0, 300))
+    has_ctx, has_tgt = draw(st.booleans()), draw(st.booleans())
+    c = draw(st.integers(0, n)) if has_ctx else 0
+    t = draw(st.integers(0, n if overlap else n - c)) if has_tgt else 0
+    window = draw(st.sampled_from([0, 0, 1, 7, 64]))
+    return dict(
+        n=n, c=c, t=t, has_ctx=has_ctx, has_tgt=has_tgt,
+        group=draw(st.integers(1, 3)), causal=draw(st.booleans()), window=window,
+        min_full=draw(st.sampled_from([0, 5, 64])) if window else 0,
+        rows=draw(st.sampled_from([4, 16, BWD_TILE])))
+
+
+def _dense(sq):
+    """[n_pad, n_pad] validity of the sequence, padded with False to whole
+    tiles."""
+    n, rows = sq["n"], sq["rows"]
+    n_pad = -(-max(n, 1) // rows) * rows
+    out = np.zeros((n_pad, n_pad), bool)
+    if n:
+        one = lambda x: torch.tensor([x])
+        m = get_valid_attn_mask(
+            sq["causal"], n, one(n),
+            num_targets=one(sq["t"]) if sq["has_tgt"] else None,
+            max_attn_len=sq["window"],
+            num_contextuals=one(sq["c"]) if sq["has_ctx"] else None,
+            min_full_attn_seq_len=sq["min_full"], target_group_size=sq["group"])
+        out[:n, :n] = m[0].numpy()
+    return out
+
+
+def _plan_kw(sq):
+    return dict(causal=sq["causal"], has_context=sq["has_ctx"])
+
+
+def _check_causal_edge(sq, valid):
+    """Where `causal_edge` holds, its form is the dense mask pair for pair
+    (the padding included)."""
+    n, c = sq["n"], sq["c"]
+    if causal_edge(n, c, causal=sq["causal"], has_targets=sq["has_tgt"],
+                   max_attn_len=sq["window"]):
+        r = np.arange(valid.shape[0])[:, None]
+        assert (causal_edge_valid(r, r.T, n, c) == valid).all()
+
+
+def _check_plan(sq):
+    valid, rows, n, c, t = _dense(sq), sq["rows"], sq["n"], sq["c"], sq["t"]
+    _check_causal_edge(sq, valid)
+    starts = range(0, n, rows)
+    for q0 in starts:
+        for k0 in starts:
+            if tile_fully_valid(q0, k0, n, c, t, rows, causal=sq["causal"],
+                                max_attn_len=sq["window"]):
+                assert valid[q0:q0 + rows, k0:k0 + rows].all(), (q0, k0)
+    # K2: no valid pair of a query tile lies past its key extent
+    for q0 in starts:
+        end = kv_tile_end(q0, n, c, rows, **_plan_kw(sq))
+        assert 0 < end <= n and not valid[q0:q0 + rows, end:].any(), q0
+    # K3: the listed query tiles (distinct, inside the sequence) hold every
+    # query row with a valid pair in the key tile
+    for k0 in starts:
+        tiles = dkv_query_tiles(k0, n, c, rows, **_plan_kw(sq))
+        assert len(set(tiles)) == len(tiles) and all(0 <= r < n for r in tiles), tiles
+        seen = np.zeros(valid.shape[0], bool)
+        for r in tiles:
+            seen[r:r + rows] = True
+        assert not (valid[:, k0:k0 + rows].any(axis=1) & ~seen).any(), k0
+
+
+@settings(max_examples=150, deadline=None)
+@given(sequences())
+def test_tile_plan_against_dense_mask(sq):
+    _check_plan(sq)
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.integers(0, 300), st.data())
+def test_causal_edge_form_matches_dense_mask(n, data):
+    """bench.py's configuration (causal, contextual rows, no targets, no
+    window): every edge tile takes the causal form, and it is the mask."""
+    has_ctx = data.draw(st.booleans())
+    sq = dict(n=n, c=data.draw(st.integers(0, n)) if has_ctx else 0, t=0, has_ctx=has_ctx,
+              has_tgt=False, group=1, causal=True, window=0, min_full=0, rows=BWD_TILE)
+    assert causal_edge(n, sq["c"], causal=True, has_targets=False, max_attn_len=0)
+    _check_causal_edge(sq, _dense(sq))
+
+
+def test_causal_edge_needs_its_conditions():
+    """Targets, a window, a non-causal mask or more contextual rows than the
+    sequence holds each turn the causal form off."""
+    kw = dict(causal=True, has_targets=False, max_attn_len=0)
+    assert causal_edge(100, 3, **kw)
+    for change in (dict(causal=False), dict(has_targets=True), dict(max_attn_len=8)):
+        assert not causal_edge(100, 3, **{**kw, **change})
+    assert not causal_edge(100, 101, **kw) and not causal_edge(100, -1, **kw)
+
+
+# lengths at the kernels' tile edges, contextual rows across a tile edge,
+# targets in groups, and sequences whose off-diagonal tiles are all interior
+EDGE_CASES = [
+    dict(n=n, c=0, t=0, has_ctx=False, has_tgt=False, group=1, causal=True, window=0,
+         min_full=0, rows=BWD_TILE) for n in (63, 64, 65, 127, 128, 129, 256)
+] + [
+    dict(n=200, c=70, t=0, has_ctx=True, has_tgt=False, group=1, causal=True, window=0,
+         min_full=0, rows=BWD_TILE),
+    dict(n=300, c=70, t=40, has_ctx=True, has_tgt=True, group=2, causal=True, window=0,
+         min_full=0, rows=BWD_TILE),
+    dict(n=290, c=3, t=31, has_ctx=True, has_tgt=True, group=3, causal=True, window=64,
+         min_full=64, rows=BWD_TILE),
+    dict(n=129, c=0, t=0, has_ctx=False, has_tgt=False, group=1, causal=False, window=0,
+         min_full=0, rows=BWD_TILE),
+]
+
+
+@pytest.mark.parametrize("sq", EDGE_CASES,
+                         ids=[f"n{s['n']}_c{s['c']}_t{s['t']}_w{s['window']}"
+                              f"{'' if s['causal'] else '_noncausal'}" for s in EDGE_CASES])
+def test_tile_plan_at_tile_edges(sq):
+    _check_plan(sq)
+
+
+def test_interior_tiles_of_whole_tile_sequences():
+    """A causal sequence of whole tiles without targets: every tile below the
+    diagonal is certified, and none on it."""
+    n = 4 * BWD_TILE
+    for q0 in range(0, n, BWD_TILE):
+        for k0 in range(0, q0 + 1, BWD_TILE):
+            assert tile_fully_valid(q0, k0, n, 3, 0, causal=True, max_attn_len=0) == (k0 < q0)
+
+
+@settings(max_examples=60, deadline=None)
+@given(sequences(overlap=False))
+def test_tile_plan_matches_jax_predicates(sq):
+    """Where contextual and target rows fit in the sequence, the certificate
+    and K2's extent are JAX's, scalar for scalar."""
+    n, c, t, rows = sq["n"], sq["c"], sq["t"], sq["rows"]
+    for q0 in range(0, n, rows):
+        want = _kv_extent(jnp.int32(q0), jnp.int32(n), jnp.int32(c), rows,
+                          causal=sq["causal"], has_context=sq["has_ctx"])
+        assert kv_tile_end(q0, n, c, rows, **_plan_kw(sq)) == int(want)
+        for k0 in range(0, n, rows):
+            full = _tile_fully_valid(jnp.int32(q0), jnp.int32(k0), jnp.int32(n),
+                                     jnp.int32(t), rows, rows, causal=sq["causal"],
+                                     max_attn_len=sq["window"], has_targets=sq["has_tgt"])
+            want = False if full is None else bool(full)
+            assert tile_fully_valid(q0, k0, n, c, t, rows, causal=sq["causal"],
+                                    max_attn_len=sq["window"]) == want, (q0, k0)

@@ -9,9 +9,12 @@ Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
 Phases (any failure exits non-zero):
   1. build   nvcc builds every kernel of the path from csrc/, in parallel;
-             no instance without the bias spills or passes its library's
-             register ceiling. (b) K2/K3's wgmma descriptors and TMA panels,
-             one tile pair per head dim, against torch.matmul.
+             no instance spills or passes its library's register ceiling
+             (the mma.sync bias kernels of hstu_attention.cu excepted), no
+             setmaxnreg is dropped and ptxas serialises no wgmma chain of the
+             wgmma libraries. (b) the wgmma descriptors, TMA panels
+             and register-A fragments of K1 and K2/K3, one tile pair per head
+             dim, against torch.matmul.
   2. kernel  paged SiLU delta attention against its plain version in bf16 at
              the serving shapes (H=4, dh=256, page 128, B=8, S in {128, 512},
              ragged cache, with and without targets) and one small odd shape.
@@ -32,13 +35,15 @@ Phases (any failure exits non-zero):
              (also with a min-full tail), non-causal; H 2 x 64; then K2 and
              K3's 64-row tile edges (lengths 63-65, 127-129), contextual rows
              across a tile edge (c 70) with targets, a batch of whole tiles
-             (interior tiles skip the mask), H 2 x 32 and 2 x 128.
+             (interior tiles skip the mask), H 2 x 32 and 2 x 128; K1's
+             128-row CTA edges (lengths 191-193, sequences whose consumer 1
+             has no rows, c 70 and 130 across the consumer boundary).
   6. train   (a) one GRTrainer step through the kernels and the same step
              with the plain attention, from the same params, at 2 layers,
              batch 8, history 512, on two batches, and a faulted control
              that the comparison must catch; (b) K1-K3 at the full-width batch's
              attention shape against the plain versions run sequence by
-             sequence, K2 and K3 launched twice and equal bit for bit, then
+             sequence, K1, K2 and K3 launched twice and equal bit for bit, then
              bench.py's ranking train step (8 layers, hidden
              1024, 4 x 256, bf16, batch 32, history 4096, all five tables
              static, item/user_id at 1M rows): a warm-up pass over 7
@@ -58,7 +63,10 @@ Phases (any failure exits non-zero):
              attention bias) through `hstu_attn_varlen(rab=...)` against the
              plain versions: rab [1,H,N,N], [B,H,N,N], [1,1,N,N], [B,1,N,N],
              fp32 and bf16, a row stride beyond max_seqlen, the mask families
-             and lengths of phase 5, head dims 256 and 64.
+             and lengths of phase 5, head dims 256 and 64, an odd row stride
+             (N 131) in fp32 and bf16 at [1,H,N,N] (drab by atomics) and
+             [B,H,N,N] (stored); K4's dq and drab with a [B,H,N,N] bias
+             launched twice and equal bit for bit.
   9. step    (a) bench.py's whole train step at full width: phase 6b's model
              with `item` and `user_id` in two dynamic tables (50M-id
              vocabularies, 4.2M rows each), a warm-up pass over the pool,
@@ -66,8 +74,9 @@ Phases (any failure exits non-zero):
              counters, a profiled step, and bench.py's JSON line; (b) the
              same step with use_relative_attention_bias (128 buckets, max
              distance 1024) for 2 timed steps, K4's launch counts of 8 per
-             step, K4's times at the full-width shape beside K1-K3's, peak
-             memory; (c) phase 6a's kernels-against-plain step and its
+             step, K4's times at the full-width shape beside K1-K3's (its dq
+             launched twice, dq equal bit for bit), peak memory, a profiled
+             step; (c) phase 6a's kernels-against-plain step and its
              faulted control once more with dynamic tables and the bias.
  10. beam    K7 (beam-decode attention) through `beam_decode_attn` against
              its plain version, bf16 and fp32: the full-width decode step (B
@@ -170,14 +179,19 @@ def ptxas_entries(report):
     return out
 
 
-# Most registers of any instance without the bias, per library, as built for
-# sm_90a by CUDA 12.8's nvcc (this script's own report); none of them spills.
-# K1 keeps what it had before the int8 and beam kernels were added. K2 and
-# K3 (hstu_attention_bwd) launch 384 threads for one CTA per SM, so ptxas
-# holds them to 168 at entry; setmaxnreg then moves the producer's registers
-# to the two consumer warpgroups (232 each).
-REGISTER_CEILING = {"hstu_attention": 242, "hstu_attention_bwd": 168,
-                    "paged_hstu_attention": 128, "beam_decode_attention": 148}
+# Most registers of any kernel instance on the path, per library, as built
+# for sm_90a by CUDA 12.8's nvcc (this script's own report); none of them
+# spills. The mma.sync bias kernels of hstu_attention (K4's forward and
+# dk/dv) are not held to it; its int8 forward (K5) keeps the ceiling it
+# had. K1 (hstu_attention_fwd),
+# K2, K3 and K4's dq (hstu_attention_bwd) launch 384 threads for one CTA per
+# SM, so ptxas holds them to 168 at entry; setmaxnreg then moves the
+# producer's registers to the two consumer warpgroups (240 each in K1, 232
+# in the others).
+REGISTER_CEILING = {"hstu_attention": 242, "hstu_attention_fwd": 168,
+                    "hstu_attention_bwd": 168, "paged_hstu_attention": 128,
+                    "beam_decode_attention": 148}
+WGMMA_LIBS = ("hstu_attention_fwd", "hstu_attention_bwd")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -188,51 +202,63 @@ def phase_build():
     for name, i in info.items():
         log(f"phase1 build {name}: {i['seconds']:.1f} s")
         for line in i["ptxas"].splitlines():
-            if "warning" in line.lower():
-                log(f"  {line.strip()[:200]}")
+            if "warning" in line.lower() or "Performance Loss" in line:
+                log(f"  {line.strip()[:300]}")
                 # a warp-specialised kernel whose setmaxnreg is dropped runs
-                # its consumers in 168 registers
-                if "setmaxnreg" in line:
+                # its consumers in 168 registers; one whose wgmma chains ptxas
+                # serialises (note C7520) loses their overlap
+                if "setmaxnreg" in line or (name in WGMMA_LIBS and "Performance Loss" in line):
                     raise SystemExit(f"phase1: {name}: {line.strip()}")
         for entry, regs, spill in ptxas_entries(i["ptxas"]):
             log(f"  ptxas {entry}: {regs} registers, {spill} bytes spilled")
-            if "rab" not in entry and (regs > REGISTER_CEILING[name] or spill):
+            # the layout checks of phase 1b run 128 or 256 threads: no ceiling
+            over = regs > REGISTER_CEILING[name] and "tile_check" not in entry
+            if not (name == "hstu_attention" and "rab" in entry) and (over or spill):
                 raise SystemExit(f"phase1: {entry} grew to {regs} registers, {spill} spilled")
 
 
 def phase_tile_check():
-    """1b. K2/K3's wgmma descriptors and TMA panel layouts, each by itself: the
-    kernels' two product chains on one TMA-loaded tile pair per head dim (the
-    score chain K-major, from the columns w * 32 of two consumers; the output
-    chain MN-major from a thread-written product tile, from the columns
-    w * dh/2) against torch.matmul in fp32. Products of bf16 values are exact
-    in fp32, so only the order of the sums differs."""
+    """1b. The wgmma descriptors, TMA panel layouts and register fragments,
+    each by itself: each kernel's two product chains on one TMA-loaded tile
+    pair per head dim against torch.matmul in fp32. K2/K3: the score chain
+    K-major from the columns w * 32 of two consumers, the output chain
+    MN-major from a thread-written product tile, from the columns w * dh/2.
+    K1: the m64n64 score chain K-major, and the output chain with A in
+    registers (a matrix put in the accumulator layout and repacked by
+    `acc_to_a`, as K1 repacks P), B MN-major. Products of bf16 values are
+    exact in fp32, so only the order of the sums differs."""
     import ctypes
 
     from recsys_examples_torch.utils import cuda_build
 
-    fn = cuda_build.load("hstu_attention_bwd").hstu_bwd_tile_check_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    checks = (("K2/K3", "hstu_attention_bwd", "hstu_bwd_tile_check_launch",
+               ("score (K-major)", "output (MN-major)")),
+              ("K1", "hstu_attention_fwd", "hstu_fwd_tile_check_launch",
+               ("score (K-major, n64)", "output (register A, MN-major)")))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
-    for dh in (32, 64, 128, 256):
-        a, b, pm = r(64, dh), r(64, dh), r(64, 64)
-        s = torch.full((64, 64), float("nan"), device="cuda")
-        o = torch.full((64, dh), float("nan"), device="cuda")
-        err = fn(a.data_ptr(), b.data_ptr(), pm.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
-                 torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
-        if err:
-            raise SystemExit(f"phase1b dh={dh}: launch failed with error {err}")
-        for tag, got, want in (("score (K-major)", s, a.float() @ b.float().T),
-                               ("output (MN-major)", o, pm.float() @ b.float())):
-            e = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            log(f"phase1b dh={dh} {tag}: max_abs_err={e:.3e} max|ref|={scale:.3e} "
-                f"tol={1e-4 * scale:.3e}")
-            if not e < 1e-4 * scale:
-                raise SystemExit(f"phase1b dh={dh}: the {tag} chain disagrees with torch.matmul")
+    for kernel, lib, entry, tags in checks:
+        fn = getattr(cuda_build.load(lib), entry)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for dh in (32, 64, 128, 256):
+            a, b, pm = r(64, dh), r(64, dh), r(64, 64)
+            s = torch.full((64, 64), float("nan"), device="cuda")
+            o = torch.full((64, dh), float("nan"), device="cuda")
+            err = fn(a.data_ptr(), b.data_ptr(), pm.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
+                     torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if err:
+                raise SystemExit(f"phase1b {kernel} dh={dh}: launch failed with error {err}")
+            for tag, got, want in ((tags[0], s, a.float() @ b.float().T),
+                                   (tags[1], o, pm.float() @ b.float())):
+                e = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                log(f"phase1b {kernel} dh={dh} {tag}: max_abs_err={e:.3e} "
+                    f"max|ref|={scale:.3e} tol={1e-4 * scale:.3e}")
+                if not e < 1e-4 * scale:
+                    raise SystemExit(f"phase1b {kernel} dh={dh}: the {tag} chain disagrees "
+                                     "with torch.matmul")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -443,17 +469,27 @@ def phase_main(attn):
     return runner, dict(cold_ms=cold_ms, warm_ms=warm_ms, launches=launches)
 
 
-# The training attention kernels by name: K1 and K4 (hstu_attention.cu),
-# K2 and K3 (hstu_attention_bwd.cu).
-ATTN_KERNELS = {"K1": "fwd_kernel", "K2": "dq_wgmma_kernel", "K3": "dkv_wgmma_kernel"}
-ATTN_NAMES = ("fwd_kernel", "wgmma_kernel", "rab_kernel")
+# The training attention kernels by name (regular expressions on the
+# profiler's kernel names, mangled or not): K1 (hstu_attention_fwd.cu), K2,
+# K3 and K4's dq, the RAB instance of K2's template (hstu_attention_bwd.cu),
+# K4's forward and dk/dv (hstu_attention.cu).
+ATTN_KERNELS = {"K1": r"fwd_wgmma_kernel",
+                "K2": r"dq_wgmma_kernel(?:ILi\d+ELb0E|<\d+, false>)",
+                "K3": r"dkv_wgmma_kernel"}
+RAB_KERNELS = {"K4 fwd": r"fwd_rab_kernel",
+               "K4 dq": r"dq_wgmma_kernel(?:ILi\d+ELb1E|<\d+, true>)",
+               "K4 dk/dv": r"dkv_rab_kernel"}
+ATTN_NAMES = ("wgmma_kernel", "rab_kernel")
 
 
 def profile_call(fn, label, top=10, groups=None, split=None):
     """Device time of one call by kernel name (torch.profiler), and the
     share of the call's wall time the device was busy. `groups`: kind ->
     substrings of kernel names, for a breakdown by kind; `split`: label ->
-    one kernel's name substring, for its device ms and launches apart."""
+    a regular expression of one kernel's names, for its device ms and
+    launches apart."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -479,7 +515,7 @@ def profile_call(fn, label, top=10, groups=None, split=None):
             totals[g] += e.self_device_time_total / 1e3
         log("  by kind: " + ", ".join(f"{g} {ms:.2f} ms" for g, ms in totals.items()))
     if split:
-        hits = {k: [e for e in events if key in e.key] for k, key in split.items()}
+        hits = {k: [e for e in events if re.search(key, e.key)] for k, key in split.items()}
         log("  by kernel: " + ", ".join(
             f"{k} {sum(e.self_device_time_total for e in h) / 1e3:.3f} ms "
             f"x{sum(e.count for e in h)}" for k, h in hits.items()))
@@ -697,6 +733,16 @@ def phase_jagged():
         res[f"odd_h2_dh{d}"] = check_jagged_case(
             f"odd_h2_dh{d}", gen, [77, 0, 300, 5, 129], 2, d, 320,
             dict(target_group_size=3), [2, 0, 70, 0, 1], [9, 0, 31, 2, 3])
+    # K1's 128-row CTA: lengths at its edges, consumer 1 without rows (64,
+    # 191, 1), contextual rows across the consumer boundary (c 70) and past
+    # the CTA (c 130), without and with targets
+    res["cta_edges"] = check_jagged_case(
+        "cta_edges", gen, [191, 192, 193, 64, 1], H, dh, 256, {})
+    res["ctx70_130"] = check_jagged_case(
+        "ctx70_130", gen, [300, 200, 260, 129], H, dh, 320, {}, [70, 130, 130, 70])
+    res["ctx70_130_tgt"] = check_jagged_case(
+        "ctx70_130_tgt", gen, [300, 200, 260, 129], H, dh, 320, dict(target_group_size=2),
+        [70, 130, 130, 70], [16, 0, 40, 3])
     return res
 
 
@@ -725,7 +771,36 @@ def phase_rab():
     res["b1_h2_dh64"] = check_jagged_case(
         "b1_h2_dh64", gen, [77, 0, 300, 5], 2, 64, 320, dict(target_group_size=3),
         [2, 0, 1, 0], [9, 0, 31, 2], rab_shape=(4, 1, 320, 320), phase="phase8")
+    # an odd row stride (N 131, as the model's 8195): every other row's drab
+    # pairs are not 8-byte aligned
+    odd = [100, 131, 67, 1]
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        for shape, kind in (((1, H, 131, 131), "1h"), ((len(odd), H, 131, 131), "bh")):
+            name = f"odd131_{kind}_{tag}"
+            res[name] = check_jagged_case(name, gen, odd, H, dh, 131, {}, rab_shape=shape,
+                                          rab_dtype=dtype, phase="phase8")
+    rab_dq_twice(gen, lengths, H, dh, N, dict(target_group_size=2), ctx, tgt)
     return res
+
+
+def rab_dq_twice(gen, lengths, H, dh, N, kw, ctx, tgt):
+    """K4's dq + drab launched twice on the same inputs with a [B,H,N,N]
+    bias: each drab cell has one owner and is stored, so dq and drab are
+    equal bit for bit."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+
+    q, k, v, do, offsets = attention_operands(gen, lengths, H, dh)
+    rab = 0.5 * torch.randn((len(lengths), H, N, N), generator=gen, device="cuda")
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")
+    opts = ha.AttnOptions(max_seqlen=N, alpha=dh ** -0.5, scaling_seqlen=N, **kw)
+    args = (q, k, v, do, rab, offsets.to(torch.int32), i32(ctx), i32(tgt), opts)
+    first, again = ha.hstu_attn_rab_bwd_dq_cuda(*args), ha.hstu_attn_rab_bwd_dq_cuda(*args)
+    same = [torch.equal(a, b) for a, b in zip(first, again)]
+    log(f"phase8 determinism: a second launch of K4's dq with a [B,H,N,N] bias equals the "
+        f"first bit for bit: dq {same[0]}, drab {same[1]}")
+    if not all(same):
+        raise SystemExit("phase8: K4's dq or drab differs between two launches on the same "
+                         "inputs")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -858,17 +933,26 @@ def main_shape_kernels(batch, with_rab=False, tag="phase6"):
                   cuda_time_ms(fns[kk], 3), cuda_time_ms(no_rab[kk], 3)] for kk in fns}
         ms = {kk: (v[1] + v[2]) / 2 for kk, v in t.items()}
         ms_no_rab = {kk: (v[0] + v[3]) / 2 for kk, v in t.items()}
+        # the bias's two costs in K4's dq: its reads alone, then its reads
+        # and drab's atomics (the timed dq above)
+        ms_no_drab = cuda_time_ms(lambda: ha.hstu_attn_rab_bwd_dq_cuda(
+            q, k, v, do, rab, *bargs[4:], need_drab=False), 3)
     else:
         ms = {kk: cuda_time_ms(f, 5) for kk, f in fns.items()}
 
-    if not with_rab:   # K2 and K3 own their output rows: no order in their sums
-        again = [fns["dq"](), *fns["dkv"]()]
-        same = [torch.equal(a, b) for a, b in zip(got[1:], again)]
-        log(f"{tag} main-shape determinism: a second launch of K2 and K3 equals the first "
-            f"bit for bit: dq {same[0]}, dk {same[1]}, dv {same[2]}")
-        if not all(same):
-            raise SystemExit(f"{tag}: K2 or K3 differs between two launches on the same inputs")
-        del again
+    # K1-K3 and K4's dq own their output rows: no order in their sums (K4's
+    # drab, summed over the batch by atomics, has one)
+    if with_rab:
+        again = {"dq": fns["dq"]()[0]}
+        same = {"dq": torch.equal(got[1], again["dq"])}
+    else:
+        again = dict(zip(("out", "dq", "dk", "dv"), [fns["fwd"](), fns["dq"](), *fns["dkv"]()]))
+        same = {kk: torch.equal(g, again[kk]) for kk, g in zip(("out", "dq", "dk", "dv"), got)}
+    log(f"{tag} main-shape determinism: a second launch equals the first bit for bit: "
+        + ", ".join(f"{kk} {ok}" for kk, ok in same.items()))
+    if not all(same.values()):
+        raise SystemExit(f"{tag}: a kernel differs between two launches on the same inputs")
+    del again
     names = ("out", "dq", "dk", "dv") + (("drab",) if with_rab else ())
     errs = dict.fromkeys(names, 0.0)
     scales = dict.fromkeys(errs, 0.0)
@@ -912,6 +996,7 @@ def main_shape_kernels(batch, with_rab=False, tag="phase6"):
         nbytes, flops = work[kk]
         log(f"{tag} main-shape {kk}: T={sum(lengths)} kernel_ms={ms[kk]:.4f} "
             + (f"(without the bias, same call: {ms_no_rab[kk]:.4f}) " if with_rab else "")
+            + (f"(without drab: {ms_no_drab:.4f}) " if with_rab and kk == "dq" else "")
             + f"plain_ms(per sequence)={res['plain_ms'][kk]:.2f} "
             f"bound_ms={res['bound'][kk][0]:.4f} ({res['bound'][kk][1]}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
@@ -1302,7 +1387,7 @@ def phase_step(rab):
     profile_call(
         lambda: trainer.train_step(state, batches[1]),
         f"{tag} profile of one train step ({tokens[0]} tokens)", top=20,
-        split=None if rab else ATTN_KERNELS, groups={
+        split=RAB_KERNELS if rab else ATTN_KERNELS, groups={
                      "attention": ATTN_NAMES,
                      "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
                      "gather/scatter": ("index", "scatter", "gather"),
@@ -1957,7 +2042,7 @@ def main():
             "name": name,
             "route": "cuda",
             "source": "recsys_examples_torch/csrc/"
-                      + ("hstu_attention.cu" if kk == "fwd" else "hstu_attention_bwd.cu"),
+                      + ("hstu_attention_fwd.cu" if kk == "fwd" else "hstu_attention_bwd.cu"),
             "replaces": f"recsys_examples_tpu/ops/pallas/hstu_attention.py:{line}",
             "launches": launches_9a[i],     # bench.py's step, phase 9a
             "max_abs_err": max([train["errs"][t] for t in tags]
@@ -1976,8 +2061,9 @@ def main():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "recsys_examples_torch/csrc/hstu_attention.cu",
-            "replaces": "recsys_examples_tpu/ops/pallas/hstu_attention.py:1481",
+            "source": "recsys_examples_torch/csrc/"
+                      + ("hstu_attention_bwd.cu" if kk == "dq" else "hstu_attention.cu"),
+            "replaces": "recsys_examples_tpu/ops/pallas/hstu_attention.py:1482",
             "launches": shape["launches"][i],   # the step with the bias, phase 9b
             "max_abs_err": max([shape["errs"][t] for t in tags]
                                + [c["errs"][t] for c in res["rab"].values() for t in tags]),

@@ -1,86 +1,65 @@
-// Jagged SiLU (HSTU) attention for training, for Hopper (sm_90a): the
-// forward (K1), and the forward, dq and dk/dv with a dense relative
-// attention bias added to the scores (K4: forward, dq + drab, dk/dv). The
-// bias-free dq (K2) and dk/dv (K3) are the wgmma kernels of
-// hstu_attention_bwd.cu; the formulas below are theirs too.
+// Jagged SiLU (HSTU) attention on mma.sync for Hopper (sm_90a): the forward
+// and dk/dv with a dense relative attention bias added to the scores (K4's
+// forward and dk/dv), and the int8 forward (K5). The bias-free forward (K1)
+// is hstu_attention_fwd.cu's, the bias-free dq and dk/dv (K2, K3) and K4's
+// dq + drab are hstu_attention_bwd.cu's, all on wgmma with TMA-fed tiles.
 //
-// Replaces the TPU kernels of recsys_examples_tpu/ops/pallas/hstu_attention.py:
-// K1 `_fwd_kernel` (launched by `_hstu_fwd_impl`), K2 `_bwd_dq_kernel` and
-// K3 `_bwd_dkv_kernel` (both launched by `_hstu_bwd_impl`). For each
-// sequence b of the packed [T, H, D] tensors (rows seq_offsets[b] ..
-// seq_offsets[b + 1]) and each head:
-//   S = alpha q k^T (fp32),  P = silu(S) / scaling * mask
-//   out = P(bf16) v                                   (K1)
-//   dP = dO v^T,  dS = dP * dsilu(S) * mask / scaling
-//   dq = alpha dS(bf16) k                             (K2)
-//   dv = P(bf16)^T dO,  dk = alpha dS(bf16)^T q       (K3)
-// with fp32 accumulation and the mask of `_compute_mask`: causal or not,
-// contextual rows collapsed to position 0 and attending the history, the
-// target-group purge, the max_attn_len window with its min-full tail, and
-// the in-sequence guards. Rows that no sequence owns are never written: the
-// caller zero-fills the outputs.
-//
-// K4 replaces `hstu_attn_varlen_rab` of the same file (the `has_rab`
-// branches of the three bodies). With rab [B|1, H|1, Nq, Nk] (fp32 or bf16,
-// positions local to the sequence):
-//   S = alpha q k^T + rab,  dS_rab = dP * dsilu(S) * mask / scaling,
-//   dS = alpha dS_rab,      drab += dS_rab
-// K4's forward is the RAB = true instance of K1's template, its dq and dk/dv
-// kernels the mma.sync templates that K2 and K3 ran before their wgmma
-// redesign, with the bias read in: each thread reads the bias of the score elements it holds before the tile's
-// products, so the loads fly behind the tensor-core work. drab is an fp32
-// tensor of rab's shape that the caller zero-fills; the dq kernel adds
-// dS_rab of its valid (row, col) pairs into it. A cell of a broadcast dim is
-// shared by the CTAs of every sequence (or head), which run in no order:
-// those adds are fp32 atomics (`red.global.add.f32`), so the sum's last bits
-// depend on the order. With a B- and H-sized rab each cell has one owner and
-// is stored. The TPU kernel instead writes a dense [B, H, N, N] and sums it
-// afterwards, 34 GB at the full-width shape. What bounds K4 there depends on
-// the batch's longest sequence: the cells of the fp32 [1, 4, 8195, 8195] bias
-// that a valid pair reaches are read once (and written once as drab), up to
-// 1.07 GB or 0.32 ms; for chip_smoke.py's batch (longest sequence about 4.6k
-// rows) that is 167 MB, and operations bound all three kernels as they do
-// K1-K3.
+// K4 replaces `hstu_attn_varlen_rab` (:1482) of
+// recsys_examples_tpu/ops/pallas/hstu_attention.py (the `has_rab` branches
+// of `_fwd_kernel` and `_bwd_dkv_kernel`). For each sequence b of the packed
+// [T, H, D] tensors (rows seq_offsets[b] .. seq_offsets[b + 1]) and each
+// head, with rab [B|1, H|1, Nq, Nk] (fp32 or bf16, positions local to the
+// sequence):
+//   S = alpha q k^T + rab (fp32),  P = silu(S) / scaling * mask
+//   out = P(bf16) v                                   (forward)
+//   dP = dO v^T,  dS = alpha dP * dsilu(S) * mask / scaling
+//   dv = P(bf16)^T dO,  dk = dS(bf16)^T q             (dk/dv)
+// with fp32 accumulation and the mask of `_compute_mask` (hstu_mask.cuh):
+// causal or not, contextual rows collapsed to position 0 and attending the
+// history, the target-group purge, the max_attn_len window with its
+// min-full tail, and the in-sequence guards. Rows that no sequence owns are
+// never written: the caller zero-fills the outputs. Each thread reads the
+// bias of the score elements it holds before the tile's products, so the
+// loads fly behind the tensor-core work. What bounds K4 depends on the
+// batch's longest sequence: the cells of the fp32 [1, 4, 8195, 8195] bias
+// that a valid pair reaches are read once, up to 1.07 GB or 0.32 ms; for
+// chip_smoke.py's batch (longest sequence about 4.6k rows) that is 167 MB,
+// and operations bound both kernels: 0.124 ms (forward, two products a valid
+// pair) and 0.248 ms (dk/dv, four) at the full-width training batch (22,458
+// tokens, 4 heads of 256; 989 TFLOP/s dense bf16, 3.35 TB/s).
 //
 // K5 replaces `hstu_attn_varlen_quantized_calibrated` of the same file (the
-// `quantized` branch of `_fwd_kernel`): K1 on int8 q, k [T, H, D] and v
-// [T, H, V] with three per-tensor fp32 scales. As on the TPU the int8 values
-// are widened to bf16 (exact) and the products run in bf16 with fp32 sums:
+// `quantized` branch of `_fwd_kernel`): the forward on int8 q, k [T, H, D]
+// and v [T, H, V] with three per-tensor fp32 scales, no bias. As on the TPU
+// the int8 values are widened to bf16 (exact) and the products run in bf16
+// with fp32 sums:
 //   S = (alpha q_scale k_scale) q8 k8^T,  P = silu(S) / scaling * mask,
 //   out = bf16(v_scale . P(bf16) v8)
 // The caller folds the two scales into alpha. `fwd_i8_kernel` moves half of
-// K1's bytes: int8 tiles stream through the cp.async ring (rows of D bytes,
-// 16-byte vectors, row stride D + 16) and each arrived tile is widened into
-// one bf16 compute tile of K1's layout, so K1's fragment code runs on it
-// unchanged. Forward only. Operations bound it like K1: its bound is K1's.
+// the bf16 forward's bytes: int8 tiles stream through the cp.async ring
+// (rows of D bytes, 16-byte vectors, row stride D + 16) and each arrived tile
+// is widened into one bf16 compute tile of the forward's layout, so its
+// fragment code runs on it unchanged. Operations bound it like K1 (0.124 ms).
 //
-// What bounds it on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s): operations.
-// At a full-width training batch (32 sequences of 3 + 2 x Zipf(1.2) history
-// tokens: 22,458 tokens, 4 heads of 256, chip_smoke.py's phase 6) the
-// forward's valid (row, col) pairs need 122.8 GFLOP per layer (0.124 ms)
-// against 184 MB of q, k, v and out (0.055 ms). K2 runs three such products
-// (S, dP, dq: 0.186 ms), K3 four (S, dP, dk, dv: 0.248 ms). chip_smoke.py
-// computes the bounds of the shapes it runs from their masks.
-//
-// Design (simple and right first; speed is later work). Packed rows are
-// read in place through seq_offsets: no aligned layout, no head padding, no
-// tile worklist. 8 warps per CTA on mma.sync m16n8k16 tensor-core tiles.
-// The CTA's own 64-row tile stays in shared memory while 32-row tiles of
-// the other side stream through a two-stage cp.async ring, so the next
-// tile's loads overlap this tile's math. Each warp computes a 16 x 16 block
-// of the 64 x 32 score tile, applies mask and silu in registers and writes
-// its bf16 product tile to shared memory; then each warp accumulates 16 rows
-// x DH/2 columns of the output product.
-//   K1, K4 dq: one CTA per (64 query rows, head, sequence), walking the key
+// Design (simple and right first). Packed rows are read in place through
+// seq_offsets: no aligned layout, no head padding, no tile worklist. 8 warps
+// per CTA on mma.sync m16n8k16 tensor-core tiles. The CTA's own 64-row tile
+// stays in shared memory while 32-row tiles of the other side stream through
+// a two-stage cp.async ring, so the next tile's loads overlap this tile's
+// math. Each warp computes a 16 x 16 block of the 64 x 32 score tile, applies
+// mask and silu in registers and writes its bf16 product tile to shared
+// memory; then each warp accumulates 16 rows x DH/2 columns of the output
+// product.
+//   forward: one CTA per (64 query rows, head, sequence), walking the key
 //   tiles the mask can reach (`_kv_extent`: causal rows stop at their
 //   diagonal, a tile that holds contextual rows goes to the end). The last
 //   tiles of a sequence, which walk furthest, are launched first.
-//   K4 dk/dv: one CTA per (64 key rows, head, sequence), walking the query tiles
+//   dk/dv: one CTA per (64 key rows, head, sequence), walking the query tiles
 //   that reach it: the causal range from the key tile on, plus the tiles of
 //   the contextual rows at the start of the sequence. It owns its dk and dv
 //   rows, so dk and dv are deterministic (no atomics).
 // Not done yet: wgmma/TMA, warp specialisation, skipping the mask on
-// interior tiles, and skipping tiles the max_attn_len window cannot reach.
+// interior tiles (K1-K3 and K4's dq have all three).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,28 +84,6 @@ using sm90::widen16;
 constexpr int NT = 256;   // 8 warps: row block warp % 4, half warp / 4
 constexpr int BT = 64;    // rows of the CTA's own tile (4 row blocks of 16)
 constexpr int BS = 32;    // rows of a streamed tile
-
-// The relative attention bias of K4. `ptr` null: no bias.
-struct Rab {
-  const void* ptr;      // [rb, rh, nq, nk], fp32 or bf16
-  float* grad;          // fp32, same shape, zero-filled (dq kernel only), or null
-  long long sb, sh;     // elements between batches / heads; 0 when broadcast
-  int nk;               // elements between rows
-  int is_bf16;
-  int atomic;           // grad cells are shared between CTAs
-  // element offset of this (sequence, head)'s [nq, nk] plane
-  __device__ size_t plane(int b, int h) const { return (size_t)(b * sb + h * sh); }
-  __device__ float at(size_t plane, int row, int col) const {
-    const size_t i = plane + (size_t)row * nk + col;
-    return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(ptr)[i])
-                   : static_cast<const float*>(ptr)[i];
-  }
-  __device__ void add_grad(size_t plane, int row, int col, float g) const {
-    if (!grad) return;   // the bias takes no gradient
-    float* dst = grad + plane + (size_t)row * nk + col;
-    if (atomic) atomicAdd(dst, g); else *dst = g;
-  }
-};
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + __expf(-x)); }
 
@@ -259,17 +216,17 @@ __device__ __forceinline__ void load_bias(float (&bias)[2][4], const Rab& rab,
     }
 }
 
-// ------------------------------------------------------------ K1: forward
+// ------------------------------------------------------------ K4: forward
 template <int DH>
 constexpr size_t fwd_smem() {
   using L = Layout<DH>;
   return sizeof(bf16) * (L::TILE + 4 * L::STREAM + L::PTILE);
 }
 
-template <int DH, bool RAB>
+template <int DH>
 __global__ void __launch_bounds__(NT, 2)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ out, Params p, Rab rab) {
+fwd_rab_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ out, Params p, Rab rab) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
@@ -285,7 +242,7 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t ld = (size_t)p.H * DH;
   const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
   const int n_tiles = (s.kv_end(p, m0, BT) + BS - 1) / BS;
-  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
+  const size_t plane = rab.plane(blockIdx.z, blockIdx.y);
 
   float o[DH / 16][4] = {};
   load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);   // joins key tile 0's group
@@ -307,16 +264,14 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* v_s = sV + buf * L::STREAM;
 
     float sc[2][4], bias[2][4];
-    if constexpr (RAB)
-      load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
+    load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
     score_block<DH>(sc, sQ, k_s, rb, hf, lane);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = sc[j][e] * p.alpha;
-        if constexpr (RAB) x += bias[j][e];
+        const float x = sc[j][e] * p.alpha + bias[j][e];
         pv[e] = s.valid(p, m0 + blk_row(rb, lane, e), ci * BS + blk_col(hf, lane, j, e))
                     ? x * sigmoid(x) * p.inv_scaling : 0.f;
       }
@@ -437,84 +392,6 @@ fwd_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   store_rows<DH>(out + base, ld, o, m0, s.n, rb, hf, lane);
 }
 
-// ------------------------------------------------------------ K4: dq + drab
-// (the bias-free K2 and K3 are hstu_attention_bwd.cu's wgmma kernels)
-template <int DH>
-constexpr size_t dq_smem() {
-  using L = Layout<DH>;
-  return sizeof(bf16) * (2 * L::TILE + 4 * L::STREAM + L::PTILE);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(NT, 1)
-dq_rab_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              bf16* __restrict__ dq, Params p, Rab rab) {
-  using L = Layout<DH>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][KS]
-  bf16* sO = sQ + L::TILE;                         // [BT][KS] dO
-  bf16* sK = sO + L::TILE;                         // [2][BS][KS]
-  bf16* sV = sK + 2 * L::STREAM;                   // [2][BS][KS]
-  bf16* sS = sV + 2 * L::STREAM;                   // [BT][PS] dS
-
-  const Seq s(p, blockIdx.z);
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BT;
-  if (m0 >= s.n) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rb = warp % 4, hf = warp / 4;
-  const size_t ld = (size_t)p.H * DH;
-  const size_t base = (size_t)s.off * ld + (size_t)blockIdx.y * DH;
-  const int n_tiles = (s.kv_end(p, m0, BT) + BS - 1) / BS;
-  const size_t plane = rab.plane(blockIdx.z, blockIdx.y);
-
-  float acc[DH / 16][4] = {};
-  load_tile<DH, BT>(sQ, q + base, ld, m0, s.n);
-  load_tile<DH, BT>(sO, dout + base, ld, m0, s.n);
-  load_tile<DH, BS>(sK, k + base, ld, 0, s.n);
-  load_tile<DH, BS>(sV, v + base, ld, 0, s.n);
-  cp_async_commit();
-  for (int ci = 0; ci < n_tiles; ++ci) {
-    const int buf = ci & 1;
-    if (ci + 1 < n_tiles) {
-      load_tile<DH, BS>(sK + (buf ^ 1) * L::STREAM, k + base, ld, (ci + 1) * BS, s.n);
-      load_tile<DH, BS>(sV + (buf ^ 1) * L::STREAM, v + base, ld, (ci + 1) * BS, s.n);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* k_s = sK + buf * L::STREAM;
-    const bf16* v_s = sV + buf * L::STREAM;
-
-    float sc[2][4], dp[2][4], bias[2][4];
-    load_bias(bias, rab, plane, s.n, m0, ci * BS, rb, hf, lane, false);
-    score_block<DH>(sc, sQ, k_s, rb, hf, lane);
-    score_block<DH>(dp, sO, v_s, rb, hf, lane);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + blk_row(rb, lane, e), col = ci * BS + blk_col(hf, lane, j, e);
-        const bool ok = s.valid(p, row, col);
-        const float x = sc[j][e] * p.alpha + bias[j][e];
-        const float sg = sigmoid(x);
-        // the bias enters the score with factor 1, q k^T with alpha
-        const float g = ok ? dp[j][e] * sg * (1.f + x * (1.f - sg)) * p.inv_scaling : 0.f;
-        if (ok) rab.add_grad(plane, row, col, g);
-        ds[e] = g * p.alpha;
-      }
-      put_block<DH>(sS, rb, hf, lane, j, ds);
-    }
-    __syncthreads();
-    accumulate<DH>(acc, sS, k_s, rb, hf, lane);
-    __syncthreads();
-  }
-  store_rows<DH>(dq + base, ld, acc, m0, s.n, rb, hf, lane);
-}
-
 // ------------------------------------------------------------ K4: dk, dv
 template <int DH>
 constexpr size_t dkv_smem() {
@@ -619,19 +496,7 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
                 causal, group, max_attn_len, min_full};
 }
 
-// CALL names the kernel as KERNEL<DH, RAB>
-#define HSTU_DISPATCH_RAB(CALL)                                       \
-  if (r.ptr) { constexpr bool RAB = true; return CALL; }              \
-  else { constexpr bool RAB = false; return CALL; }
-#define HSTU_DISPATCH_DH(dh, CALL)                                    \
-  switch (dh) {                                                       \
-    case 32: { constexpr int DH = 32; HSTU_DISPATCH_RAB(CALL) }       \
-    case 64: { constexpr int DH = 64; HSTU_DISPATCH_RAB(CALL) }       \
-    case 128: { constexpr int DH = 128; HSTU_DISPATCH_RAB(CALL) }     \
-    case 256: { constexpr int DH = 256; HSTU_DISPATCH_RAB(CALL) }     \
-    default: return -1;                                               \
-  }
-// the backward kernels of K4 only: without a bias, -1
+// K4's kernels: without a bias, -1
 #define HSTU_DISPATCH_DH_RAB(dh, CALL)                                \
   if (!r.ptr) return -1;                                              \
   switch (dh) {                                                       \
@@ -644,16 +509,14 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
 
 }  // namespace
 
-// All three take bf16 [T, H, dh] tensors (dh 32, 64, 128 or 256), int32
+// Both take bf16 [T, H, dh] tensors (dh 32, 64, 128 or 256), int32
 // seq_offsets [B + 1] and optional int32 num_contextuals / num_targets [B]
-// (null when absent). `rab` (null when absent) is the fp32 or bf16 bias
-// [rb, rh, nq, nk] with `rab_sb` / `rab_sh` elements between batches / heads
-// (0 for a broadcast dim) and `rab_nk` between rows; the dq kernel adds the
-// bias gradient into the zero-filled fp32 `drab` of the same layout, with
-// atomics when `drab_atomic`. The two backward launchers take a bias only
-// (without one they return -1: the bias-free K2 and K3 are
-// hstu_attention_bwd.cu's). Each returns the CUDA error code of its launch
-// (0 on success) or -1 for an unsupported head dim or group size.
+// (null when absent), and the fp32 or bf16 bias `rab` [rb, rh, nq, nk] with
+// `rab_sb` / `rab_sh` elements between batches / heads (0 for a broadcast
+// dim) and `rab_nk` between rows; `drab` and `drab_atomic` are not read
+// (K4's dq + drab is hstu_attention_bwd.cu's). Each returns the CUDA error
+// code of its launch (0 on success) or -1 for an unsupported head dim or
+// group size, or without a bias.
 #define HSTU_COMMON_ARGS                                                         \
   const int *seq_offsets, const int *num_contextuals, const int *num_targets,    \
       int B, int H, int dh, int max_seqlen, float alpha, float inv_scaling,      \
@@ -672,27 +535,19 @@ Params make_params(const int* seq_offsets, const int* num_contextuals,
   const dim3 grid((max_seqlen + BT - 1) / BT, H, B);                             \
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-extern "C" int hstu_attn_fwd_launch(const void* q, const void* k, const void* v,
-                                    void* out, HSTU_COMMON_ARGS) {
+extern "C" int hstu_attn_rab_fwd_launch(const void* q, const void* k, const void* v,
+                                        void* out, HSTU_COMMON_ARGS) {
   HSTU_PROLOGUE
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v);
   bf16* O = static_cast<bf16*>(out);
-  HSTU_DISPATCH_DH(dh, launch(fwd_kernel<DH, RAB>, fwd_smem<DH>(), grid, st, Q, K, V, O, p, r))
+  HSTU_DISPATCH_DH_RAB(dh, launch(fwd_rab_kernel<DH>, fwd_smem<DH>(), grid, st, Q, K, V, O, p,
+                                  r))
 }
 
-extern "C" int hstu_attn_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                       const void* dout, void* dq, HSTU_COMMON_ARGS) {
-  HSTU_PROLOGUE
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
-             *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);
-  bf16* dQ = static_cast<bf16*>(dq);
-  HSTU_DISPATCH_DH_RAB(dh, launch(dq_rab_kernel<DH>, dq_smem<DH>(), grid, st, Q, K, V, dO, dQ, p, r))
-}
-
-extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                        const void* dout, void* dk, void* dv,
-                                        HSTU_COMMON_ARGS) {
+extern "C" int hstu_attn_rab_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                            const void* dout, void* dk, void* dv,
+                                            HSTU_COMMON_ARGS) {
   HSTU_PROLOGUE
   const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
              *V = static_cast<const bf16*>(v), *dO = static_cast<const bf16*>(dout);

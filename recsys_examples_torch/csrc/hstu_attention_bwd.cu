@@ -1,9 +1,11 @@
-// The backward of the jagged SiLU (HSTU) attention without a bias, for
-// Hopper (sm_90a): dq (K2) and dk/dv (K3), on wgmma with TMA-fed tiles.
+// The backward of the jagged SiLU (HSTU) attention for Hopper (sm_90a): dq
+// (K2) and dk/dv (K3), and dq + drab with a relative attention bias (K4's
+// dq), on wgmma with TMA-fed tiles.
 //
 // Replaces the TPU kernels `_bwd_dq_kernel` (:448) and `_bwd_dkv_kernel`
 // (:677) of recsys_examples_tpu/ops/pallas/hstu_attention.py, both launched
-// by `_hstu_bwd_impl` (:1202). For each sequence b of the packed [T, H, D]
+// by `_hstu_bwd_impl` (:1202), and the dq kernel's `has_rab` branch (:549-629)
+// of `hstu_attn_varlen_rab` (:1482). For each sequence b of the packed [T, H, D]
 // bf16 tensors (rows seq_offsets[b] .. seq_offsets[b + 1]) and each head:
 //   S = alpha q k^T,  P = silu(S) / scaling * mask,  dP = dO v^T,
 //   dS = dP * dsilu(S) * mask / scaling
@@ -14,6 +16,29 @@
 // (hstu_mask.cuh). Rows that no sequence owns are never written: the caller
 // zero-fills the outputs. Each CTA owns its output rows, so both kernels are
 // deterministic (no atomics).
+//
+// K4's dq is the RAB = true instance of K2's template. With rab [B|1, H|1,
+// Nq, Nk] (fp32 or bf16, positions local to the sequence):
+//   x = alpha S + rab,  g_rab = dP * dsilu(x) * mask / scaling,
+//   dS = alpha g_rab,   drab += g_rab
+// drab is an fp32 tensor of rab's shape that the caller zero-fills. A cell of
+// a broadcast dim is shared by the CTAs of every sequence (or head), which
+// run in no order: those adds are fp32 atomics, so drab's last bits depend on
+// their order; with a B- and H-sized rab each cell has one owner and is
+// stored. dq stays deterministic. The bias does not go through TMA and shared
+// memory: K2's layout leaves 18 KB free at D = 256, less than two 16 KB fp32
+// bias stages, and the model's [1, 4, 8195, 8195] fp32 bias has a row stride
+// of 32,780 bytes, which is not the multiple of 16 that TMA needs. Each
+// consumer thread instead reads the bias of its 16 score elements from
+// global memory before it issues the score chains, so the loads fly behind
+// them, and adds its g_rab of the valid pairs into drab after the dP chain,
+// as 8-byte pairs where a pair is 8-byte aligned (with an odd Nk, every
+// other row's are not) and else a cell at a time. Every valid pair then
+// reads one bias cell and adds one drab cell: at the full-width batch
+// (22,458 tokens, a [1, 4, 8195, 8195] fp32 bias) about 480 MB each way,
+// 0.29 ms at 3.35 TB/s if L2 reuses none of it, beside the 0.186 ms of its
+// products (chip_smoke.py's bound counts each cell once: 167 MB each way).
+// The drab atomics, not the products, set its time (PERF.md).
 //
 // What bounds them on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s):
 // operations. Every valid (query, key) pair costs K2 three products (S, dP,
@@ -73,36 +98,21 @@
 namespace {
 
 using sm90::bf16;
+using sm90::load_tile;
 
-constexpr int BT = 64;                    // rows of every tile
+constexpr int BT = sm90::TILE_ROWS;       // rows of every tile (64)
 constexpr int NC = 2;                     // consumer warpgroups
 constexpr int NTHREADS = 128 * (NC + 1);  // + the producer's warpgroup
 constexpr int STAGES = 2;
 constexpr int PT = BT * BT * 2;           // bytes of a [64][64] bf16 product tile
 
 template <int DH>
-struct Tile {
-  static constexpr int PW = DH < 64 ? DH : 64;   // panel columns (one TMA box row)
-  static constexpr int PB = 2 * PW;              // panel row bytes = the swizzle span
-  static constexpr int NP = DH / PW;             // panels per [64][DH] tile
-  static constexpr int PANEL = BT * PB;          // bytes of a panel
-  static constexpr int BYTES = NP * PANEL;       // bytes of a [64][DH] tile
-  static constexpr int SW = PB == 128 ? sm90::SW128 : sm90::SW64;
+struct Tile : sm90::Tile<DH> {
   static constexpr int HALF = DH / NC;           // output columns per consumer
-  static_assert(BYTES % 1024 == 0, "tiles start on 1024-byte boundaries");
 };
 
 // fast reciprocal: two ulps at most, far below the bf16 rounding of P and dS
 __device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
-
-// Rows [row, row + 64) and columns [col, col + DH) of `map` into a tile.
-template <int DH>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, int col,
-                                          int row, uint64_t* bar) {
-  using L = Tile<DH>;
-#pragma unroll
-  for (int i = 0; i < L::NP; ++i) sm90::tma_load_2d(dst + i * L::PANEL, map, col + i * L::PW, row, bar);
-}
 
 // acc[64 x 32] = A[64][DH] . B[b0 .. b0 + 32][DH]^T, A and B tiles read
 // K-major.
@@ -175,21 +185,18 @@ constexpr size_t smem_bytes() {
 }
 
 // ------------------------------------------------------------ elementwise
-// How a tile applies the mask: not at all (`tile_fully_valid`), in its
-// causal form (`causal_edge`), or in full.
-enum Mask { NONE, CAUSAL, FULL };
-
 // The part of a score block's elementwise work that needs S alone, done
-// while the dP chain still runs: each element's SiLU factor g = dsilu(S) *
+// while the dP chain still runs: each element's SiLU factor g = dsilu(x) *
 // mask * alpha / scaling (0 where masked), and with `sp` P in bf16 into
 // that product tile. The block's rows are `r0 + acc_row`, its columns
 // `c0 + acc_col` of the tile; with TRANS the mask reads (column, row), K3's
-// transposed blocks.
-template <Mask MASK, bool TRANS>
+// transposed blocks. With RAB (K4's dq): x = alpha S + bias, g leaves out
+// alpha (dP g is drab's share), and bit i of `okm` says element i is valid.
+template <Mask MASK, bool TRANS, bool RAB>
 __device__ __forceinline__ void silu_part(const float (&sc)[16], float (&g)[16], unsigned char* sp,
-                                          const Params& p, const Seq& s, int r0, int c0, int w,
-                                          int t) {
-  const float ds_scale = p.inv_scaling * p.alpha;
+                                          const float* bias, uint32_t* okm, const Params& p,
+                                          const Seq& s, int r0, int c0, int w, int t) {
+  const float g_scale = RAB ? p.inv_scaling : p.inv_scaling * p.alpha;
   uint32_t pk[8];
 #pragma unroll
   for (int i = 0; i < 16; i += 2) {
@@ -197,13 +204,14 @@ __device__ __forceinline__ void silu_part(const float (&sc)[16], float (&g)[16],
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = sm90::acc_row(t, i + e), c = w * 32 + sm90::acc_col(t, i + e);
-      const float x = sc[i + e] * p.alpha, sg = sigmoid(x);
+      float x = sc[i + e] * p.alpha;
+      if constexpr (RAB) x += bias[i + e];
+      const float sg = sigmoid(x);
       const int qr = TRANS ? c0 + c : r0 + r, kc = TRANS ? r0 + r : c0 + c;
-      const bool ok = MASK == NONE     ? true
-                      : MASK == CAUSAL ? s.causal_edge_valid(qr, kc)
-                                       : s.valid(p, qr, kc);
+      const bool ok = mask_ok<MASK>(p, s, qr, kc);
       pv[e] = ok ? x * sg * p.inv_scaling : 0.f;
-      g[i + e] = ok ? sg * (1.f + x * (1.f - sg)) * ds_scale : 0.f;
+      g[i + e] = ok ? sg * (1.f + x * (1.f - sg)) * g_scale : 0.f;
+      if constexpr (RAB) *okm |= (uint32_t)ok << (i + e);
     }
     pk[i / 2] = sm90::pack_bf16(pv[0], pv[1]);
   }
@@ -212,17 +220,18 @@ __device__ __forceinline__ void silu_part(const float (&sc)[16], float (&g)[16],
 
 // silu_part with the tile's mask form: tile rows [q0, q0 + 64) of queries
 // and [k0, k0 + 64) of keys.
-template <bool TRANS>
+template <bool TRANS, bool RAB = false>
 __device__ __forceinline__ void silu_tile(const float (&sc)[16], float (&g)[16], unsigned char* sp,
                                           const Params& p, const Seq& s, int q0, int k0, int w,
-                                          int t) {
+                                          int t, const float* bias = nullptr,
+                                          uint32_t* okm = nullptr) {
   const int r0 = TRANS ? k0 : q0, c0 = TRANS ? q0 : k0;
   if (s.tile_fully_valid(p, q0, k0, BT))
-    silu_part<NONE, TRANS>(sc, g, sp, p, s, r0, c0, w, t);
+    silu_part<NONE, TRANS, RAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
   else if (s.causal_edge(p))
-    silu_part<CAUSAL, TRANS>(sc, g, sp, p, s, r0, c0, w, t);
+    silu_part<CAUSAL, TRANS, RAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
   else
-    silu_part<FULL, TRANS>(sc, g, sp, p, s, r0, c0, w, t);
+    silu_part<FULL, TRANS, RAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
 }
 
 // dS = dP * g, in bf16, into the product tile `ss`.
@@ -231,6 +240,39 @@ __device__ __forceinline__ void ds_part(const float (&dp)[16], const float (&g)[
   uint32_t pk[8];
 #pragma unroll
   for (int i = 0; i < 16; i += 2) pk[i / 2] = sm90::pack_bf16(dp[i] * g[i], dp[i + 1] * g[i + 1]);
+  put_block(ss, w * 32, pk, t);
+}
+
+// K4: the bias of a consumer's 16 score elements, rows row0 + acc_row and
+// columns col0 + acc_col of the sequence; 0 past its end.
+__device__ __forceinline__ void load_bias(float (&b)[16], const Rab& rab, size_t plane, int n,
+                                          int row0, int col0, int t) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = row0 + sm90::acc_row(t, i), c = col0 + sm90::acc_col(t, i);
+    b[i] = r < n && c < n ? rab.at(plane, r, c) : 0.f;
+  }
+}
+
+// K4: g_rab = dP * g; dS = alpha g_rab in bf16 into the product tile `ss`,
+// and g_rab of the valid elements (`okm`) into drab at rows row0 + acc_row,
+// columns col0 + w * 32 + acc_col: a thread's cell pairs (c, c + 1), c even,
+// as 8-byte accesses where aligned (with an odd `nk`, every other row's are
+// not).
+__device__ __forceinline__ void ds_rab_part(const float (&dp)[16], const float (&g)[16],
+                                            uint32_t okm, unsigned char* ss, const Rab& rab,
+                                            size_t plane, float alpha, int row0, int col0, int w,
+                                            int t) {
+  uint32_t pk[8];
+#pragma unroll
+  for (int i = 0; i < 16; i += 2) {
+    const float g0 = dp[i] * g[i], g1 = dp[i + 1] * g[i + 1];
+    pk[i / 2] = sm90::pack_bf16(g0 * alpha, g1 * alpha);
+    if (rab.grad)
+      rab.add_grad2(rab.grad + plane + (size_t)(row0 + sm90::acc_row(t, i)) * rab.nk + col0 +
+                        w * 32 + sm90::acc_col(t, i),
+                    g0, g1, (okm >> i) & 1, (okm >> (i + 1)) & 1);
+  }
   put_block(ss, w * 32, pk, t);
 }
 
@@ -327,12 +369,12 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
   }
 }
 
-// ------------------------------------------------------------ K2: dq
-template <int DH>
+// ------------------------------------------------------------ K2: dq (RAB: K4's dq + drab)
+template <int DH, bool RAB>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                bf16* __restrict__ dq, Params p) {
+                bf16* __restrict__ dq, Params p, Rab rab) {
   using L = Tile<DH>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = sm90::align1024(smem_raw);
@@ -348,6 +390,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
   if (m0 >= s.n) return;
   const int col = blockIdx.y * DH;
   const int n_tiles = (s.kv_end(p, m0, BT) + BT - 1) / BT;
+  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
   if (threadIdx.x == 0) {
     ring->init(NC * 128);
     sm90::mbar_init(qo_full, 1);
@@ -383,8 +426,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
       const int k0 = i * BT;
       ring->consumer_wait(i);
 
-      // score blocks, columns wg * 32 ..; S and dP commit apart
-      float sc[16], dp[16], g[16];
+      // score blocks, columns wg * 32 ..; S and dP commit apart. The bias
+      // loads are issued first, so they fly behind the chains.
+      float sc[16], dp[16], g[16], bias[16];
+      uint32_t okm = 0;
+      if constexpr (RAB) load_bias(bias, rab, plane, s.n, m0, k0 + wg * 32, t);
       sm90::wgmma_fence();
       score_chain<DH>(sc, sQ, k_s, wg * 32);
       sm90::wgmma_commit();
@@ -392,10 +438,13 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();
       sm90::fence_regs(sc);
-      silu_tile<false>(sc, g, nullptr, p, s, m0, k0, wg, t);
+      silu_tile<false, RAB>(sc, g, nullptr, p, s, m0, k0, wg, t, bias, &okm);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dp);
-      ds_part(dp, g, ss, wg, t);
+      if constexpr (RAB)
+        ds_rab_part(dp, g, okm, ss, rab, plane, p.alpha, m0, k0, wg, t);
+      else
+        ds_part(dp, g, ss, wg, t);
       sm90::fence_async_smem();
       sm90::named_sync<NC * 128>(1);   // both halves of dS written
 
@@ -469,28 +518,7 @@ tile_check_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant_
 }
 
 // ------------------------------------------------------------ launch
-template <class T>
-struct same { using type = T; };
-
-template <typename... A>
-int launch(void (*kern)(A...), size_t smem, dim3 grid, int threads, cudaStream_t st,
-           typename same<A>::type... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, threads, smem, st>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// The maps of q, k, v and dO [T][H * dh]: 64-row boxes of one panel.
-int make_maps(CUtensorMap (&m)[4], const void* const (&x)[4], int T, int H, int dh) {
-  const int pw = dh < 64 ? dh : 64;
-  for (int i = 0; i < 4; ++i) {
-    const int err = sm90::make_tile_map(&m[i], x[i], T, (uint64_t)H * dh, (uint64_t)H * dh, BT, pw);
-    if (err) return err;
-  }
-  return 0;
-}
+using sm90::launch;
 
 #define BWD_DISPATCH_DH(dh, CALL)                                     \
   switch (dh) {                                                       \
@@ -503,17 +531,18 @@ int make_maps(CUtensorMap (&m)[4], const void* const (&x)[4], int T, int H, int 
 
 }  // namespace
 
-// Both take bf16 [T, H, dh] q, k, v and dO (dh 32, 64, 128 or 256; 16-byte
-// aligned), int32 seq_offsets [B + 1] and optional int32 num_contextuals /
-// num_targets [B] (null when absent), and write the bf16 gradients of the
-// rows the sequences own. Each returns the CUDA error code of its launch (0
-// on success), -1 for an unsupported head dim or group size, -2 / -3 when
-// a tensor map cannot be made.
+// All three take bf16 [T, H, dh] q, k, v and dO (dh 32, 64, 128 or 256;
+// 16-byte aligned), int32 seq_offsets [B + 1] and optional int32
+// num_contextuals / num_targets [B] (null when absent), and write the bf16
+// gradients of the rows the sequences own. Each returns the CUDA error code
+// of its launch (0 on success), -1 for an unsupported head dim or group size
+// (or, for K4's dq, a missing bias), -2 / -3 when a tensor map cannot be
+// made.
 #define BWD_ARGS                                                                 \
   const int *seq_offsets, const int *num_contextuals, const int *num_targets,    \
       int T, int B, int H, int dh, int max_seqlen, float alpha, float inv_scaling, \
       int causal, int target_group_size, int max_attn_len,                       \
-      int min_full_attn_seq_len, void *stream
+      int min_full_attn_seq_len
 
 #define BWD_PROLOGUE                                                             \
   if (target_group_size < 1) return -1;                                          \
@@ -524,20 +553,39 @@ int make_maps(CUtensorMap (&m)[4], const void* const (&x)[4], int T, int H, int 
   CUtensorMap m[4];                                                              \
   const void* const x[4] = {q, k, v, dout};                                      \
   if (dh != 32 && dh != 64 && dh != 128 && dh != 256) return -1;                 \
-  if (const int err = make_maps(m, x, T, H, dh)) return err;                     \
+  if (const int err = sm90::make_row_maps(m, x, T, H, dh)) return err;           \
   const dim3 grid((max_seqlen + BT - 1) / BT, H, B);                             \
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
 extern "C" int hstu_attn_bwd_dq_launch(const void* q, const void* k, const void* v,
-                                       const void* dout, void* dq, BWD_ARGS) {
+                                       const void* dout, void* dq, BWD_ARGS, void* stream) {
   BWD_PROLOGUE
   bf16* dQ = static_cast<bf16*>(dq);
-  BWD_DISPATCH_DH(dh, launch(dq_wgmma_kernel<DH>, smem_bytes<DH, 2>(), grid, NTHREADS, st,
-                             m[0], m[1], m[2], m[3], dQ, p))
+  const Rab none{};
+  BWD_DISPATCH_DH(dh, launch(dq_wgmma_kernel<DH, false>, smem_bytes<DH, 2>(), grid, NTHREADS,
+                             st, m[0], m[1], m[2], m[3], dQ, p, none))
+}
+
+// K4's dq + drab: besides, the fp32 or bf16 bias `rab` [rb, rh, nq, nk] with
+// `rab_sb` / `rab_sh` elements between batches / heads (0 for a broadcast
+// dim) and `rab_nk` between rows, and the zero-filled fp32 `drab` of the same
+// layout (null: no bias gradient), summed with atomics when `drab_atomic`.
+extern "C" int hstu_attn_rab_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                           const void* dout, void* dq, BWD_ARGS,
+                                           const void* rab, void* drab, long long rab_sb,
+                                           long long rab_sh, int rab_nk, int rab_is_bf16,
+                                           int drab_atomic, void* stream) {
+  if (!rab) return -1;
+  BWD_PROLOGUE
+  bf16* dQ = static_cast<bf16*>(dq);
+  const Rab r{rab, static_cast<float*>(drab), rab_sb, rab_sh, rab_nk, rab_is_bf16, drab_atomic};
+  BWD_DISPATCH_DH(dh, launch(dq_wgmma_kernel<DH, true>, smem_bytes<DH, 2>(), grid, NTHREADS,
+                             st, m[0], m[1], m[2], m[3], dQ, p, r))
 }
 
 extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void* v,
-                                        const void* dout, void* dk, void* dv, BWD_ARGS) {
+                                        const void* dout, void* dk, void* dv, BWD_ARGS,
+                                        void* stream) {
   BWD_PROLOGUE
   bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
   BWD_DISPATCH_DH(dh, launch(dkv_wgmma_kernel<DH>, smem_bytes<DH, 4>(), grid, NTHREADS, st,
@@ -548,14 +596,13 @@ extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void
 // s_out [64][64] = a b^T and o_out [64][dh] = p b. Same return codes.
 extern "C" int hstu_bwd_tile_check_launch(const void* a, const void* b, const void* pg,
                                           void* s_out, void* o_out, int dh, void* stream) {
-  CUtensorMap ma, mb;
-  const int pw = dh < 64 ? dh : 64;
   if (dh != 32 && dh != 64 && dh != 128 && dh != 256) return -1;
-  if (const int err = sm90::make_tile_map(&ma, a, BT, dh, dh, BT, pw)) return err;
-  if (const int err = sm90::make_tile_map(&mb, b, BT, dh, dh, BT, pw)) return err;
+  CUtensorMap m[2];
+  const void* const x[2] = {a, b};
+  if (const int err = sm90::make_row_maps(m, x, BT, 1, dh)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* P = static_cast<const bf16*>(pg);
   float *S = static_cast<float*>(s_out), *O = static_cast<float*>(o_out);
   BWD_DISPATCH_DH(dh, launch(tile_check_kernel<DH>, 1024 + 2 * Tile<DH>::BYTES + PT + 8,
-                             dim3(1), NC * 128, st, ma, mb, P, S, O))
+                             dim3(1), NC * 128, st, m[0], m[1], P, S, O))
 }

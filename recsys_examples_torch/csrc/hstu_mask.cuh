@@ -1,11 +1,15 @@
-// The jagged HSTU attention's mask and tile plan, shared by the training
-// kernels (hstu_attention.cu: K1, K4, K5; hstu_attention_bwd.cu: K2, K3).
-// The tile plan is a line-by-line copy of the plain statements in
+// The jagged HSTU attention's mask, tile plan and relative bias, shared by
+// the training kernels (hstu_attention_fwd.cu: K1; hstu_attention_bwd.cu:
+// K2, K3, K4 dq; hstu_attention.cu: K4 forward and dk/dv, K5). The tile plan
+// is a line-by-line copy of the plain statements in
 // recsys_examples_torch/ops/hstu_attention_ref.py (`tile_fully_valid`,
-// `causal_edge`, `causal_edge_valid`, `kv_tile_end`, `dkv_query_tiles`),
-// which tests/test_torch_hstu_tiles.py holds against the dense mask and the
-// JAX kernel's own predicates.
+// `causal_edge`, `causal_edge_valid`, `kv_tile_end`, `fwd_cta_tiles`,
+// `fwd_tiles`, `dkv_query_tiles`), which tests/test_torch_hstu_tiles.py
+// holds against the dense mask and the JAX kernel's own predicates.
 #pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
 
 struct Params {
   const int* seq_offsets;       // [B + 1]
@@ -68,6 +72,17 @@ struct Seq {
     if (!p.causal || (has_ctx && q0 < c)) return n;
     return min(n, q0 + rows);
   }
+  // `fwd_cta_tiles`: the 64-row key tiles that K1's CTA of query rows
+  // [m0, m0 + 128) walks
+  __device__ int fwd_cta_tiles(const Params& p, int m0) const {
+    return (kv_end(p, m0, 128) + 63) / 64;
+  }
+  // `fwd_tiles`: the 64-row key tiles that K1's consumer of query rows
+  // [q0, q0 + 64) computes; none when its rows lie past the sequence
+  __device__ int fwd_tiles(const Params& p, int q0) const {
+    if (q0 >= n) return 0;
+    return (kv_end(p, q0, 64) + 63) / 64;
+  }
   // `tile_fully_valid` (JAX `_tile_fully_valid`): every pair of query rows
   // [q0, q0 + rows) and key columns [k0, k0 + rows) is valid, so the tile
   // needs no mask
@@ -94,4 +109,48 @@ struct QueryTiles {
     count = n_ctx + n_q - first;
   }
   __device__ int row0(int i) const { return (i < n_ctx ? i : first + i - n_ctx) * rows; }
+};
+
+// How a tile applies the mask: not at all (`tile_fully_valid`), in its
+// causal form (`causal_edge`), or in full.
+enum Mask { NONE, CAUSAL, FULL };
+
+template <Mask MASK>
+__device__ __forceinline__ bool mask_ok(const Params& p, const Seq& s, int row, int col) {
+  return MASK == NONE     ? true
+         : MASK == CAUSAL ? s.causal_edge_valid(row, col)
+                          : s.valid(p, row, col);
+}
+
+// The relative attention bias of K4. `ptr` null: no bias.
+struct Rab {
+  const void* ptr;      // [rb, rh, nq, nk], fp32 or bf16
+  float* grad;          // fp32, same shape, zero-filled (dq kernel only), or null
+  long long sb, sh;     // elements between batches / heads; 0 when broadcast
+  int nk;               // elements between rows
+  int is_bf16;
+  int atomic;           // grad cells are shared between CTAs
+  // element offset of this (sequence, head)'s [nq, nk] plane
+  __device__ size_t plane(int b, int h) const { return (size_t)(b * sb + h * sh); }
+  __device__ float at(size_t plane, int row, int col) const {
+    const size_t i = plane + (size_t)row * nk + col;
+    return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(ptr)[i])
+                   : static_cast<const float*>(ptr)[i];
+  }
+  __device__ void add_grad(float* dst, float g) const {
+    if (atomic) atomicAdd(dst, g); else *dst = g;
+  }
+  // The gradient of cells dst[0] and dst[1], each where its `ok`: one 8-byte
+  // access where both are taken and dst is 8-byte aligned, else one access a
+  // cell.
+  __device__ void add_grad2(float* dst, float g0, float g1, bool ok0, bool ok1) const {
+    if (ok0 && ok1 && (reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
+      const float2 g = make_float2(g0, g1);
+      if (atomic) atomicAdd(reinterpret_cast<float2*>(dst), g);
+      else *reinterpret_cast<float2*>(dst) = g;
+      return;
+    }
+    if (ok0) add_grad(dst, g0);
+    if (ok1) add_grad(dst + 1, g1);
+  }
 };

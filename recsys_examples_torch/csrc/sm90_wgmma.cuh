@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
-// wgmma shared-memory descriptors and the bf16 m64nNk16 product, its fence /
-// commit / wait, the TMA tensor map and its 2-D tile load, the mbarrier
-// full/empty ring, named barriers and setmaxnreg.
+// wgmma shared-memory descriptors and the bf16 m64nNk16 product with A from
+// shared memory or from registers, the repack of an accumulator into A
+// fragments, its fence / commit / wait, the TMA tensor map and the 64-row
+// panel tile it loads, the mbarrier full/empty ring, named barriers and
+// setmaxnreg.
 //
 // Tile layout. A [64][D] bf16 tile arrives by TMA as D / PW panels of
 // [64 rows][PW columns], PW = 64 (128-byte rows, 128-byte swizzle) or, for
@@ -26,6 +28,23 @@
 // wgmma accumulator layout (m64nN, fp32, thread t of the warpgroup, element
 // i of N/2): row (t / 32) * 16 + (t % 32) / 4 + 8 * ((i / 2) % 2), column
 // 8 * (i / 4) + 2 * (t % 4) + i % 2.
+//
+// Register A (`WgmmaRS`). The A operand of an m64nNk16 bf16 product may come
+// from four 32-bit registers a thread instead of shared memory. Their layout
+// is the PTX ISA's "Register Fragments" of the warpgroup-level matrix
+// multiply (section "Asynchronous Warpgroup Level Matrix Multiply-Accumulate
+// Instructions" > "Register Fragments and Shared Memory Matrix Layouts",
+// figure "WGMMA .m64nNk16 register fragment layout for matrix A"): warp
+// t / 32 holds rows 16 (t / 32) .. + 15 of the 64 x 16 slice; with
+// g = (t % 32) / 4 and c = 2 (t % 4), register 0 holds (row g, columns c and
+// c + 1), register 1 (g + 8, c ..), register 2 (g, c + 8 ..), register 3
+// (g + 8, c + 8 ..), the lower column in the low 16 bits. That is where an
+// m64nN accumulator keeps its elements 8j .. 8j + 7 of columns 16j .. 16j +
+// 15 (above), so slice j of a product's A is `acc_to_a` of the accumulator
+// of the product before it: pack(d[8j], d[8j + 1]), pack(d[8j + 2],
+// d[8j + 3]), ... (FlashAttention-3's P, which never goes through shared
+// memory). The registers are read while the product runs: they must not be
+// written before its wgmma_wait.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -43,6 +62,21 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
                                               int layout) {
   return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// `x`, hidden from the compiler: the descriptors of a product chain derived
+// from it are then computed where the chain runs, not hoisted out of the
+// tile loop into registers that stay live across it.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// The descriptor of the operand `bytes` (a multiple of 16) further on in
+// shared memory: the start address is the low 14 bits, in 16-byte units, and
+// shared addresses stay below 2^18, so the add does not carry out of them.
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, int bytes) {
+  return desc + (uint64_t)(bytes >> 4);
 }
 
 // Byte offset of element (r, c) in a [rows][64] bf16 tile with 128-byte rows
@@ -144,7 +178,68 @@ struct Wgmma<128, TB> {
   }
 };
 
+// d[64 x N] (+)= A[64 x 16] . B[16 x N] with A in registers (a0 .. a3, the
+// register fragment above) and B from shared memory through its descriptor,
+// read MN-major with TB = 1. `acc` 0 overwrites d.
+template <int N, int TB>
+struct WgmmaRS;
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : SM90_F8(0), SM90_F8(8)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<64, TB> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<128, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32), SM90_F8(40),
+          SM90_F8(48), SM90_F8(56)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
 #undef SM90_F8
+
+// An m64nN accumulator (R = N / 2 values a thread) as the bf16 A fragments
+// of its N / 16 k-slices: slice j is a[4j .. 4j + 3] (register A, above).
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[R / 2], const float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
+}
 
 // ------------------------------------------------------------ TMA, mbarrier
 // Copy the box at (c0 = column, c1 = row) of `map` into shared memory at
@@ -218,6 +313,11 @@ template <int THREADS>
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory");
 }
+// arrive at named barrier `id` without waiting for it
+template <int THREADS>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(THREADS) : "memory");
+}
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
@@ -229,6 +329,30 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
                                           ~uintptr_t(1023));
+}
+
+// ------------------------------------------------------------ panel tiles
+constexpr int TILE_ROWS = 64;   // rows of every TMA tile
+
+// The panels of a [64][DH] bf16 tile (the layout at the top of this file).
+template <int DH>
+struct Tile {
+  static constexpr int PW = DH < 64 ? DH : 64;   // panel columns (one TMA box row)
+  static constexpr int PB = 2 * PW;              // panel row bytes = the swizzle span
+  static constexpr int NP = DH / PW;             // panels per [64][DH] tile
+  static constexpr int PANEL = TILE_ROWS * PB;   // bytes of a panel
+  static constexpr int BYTES = NP * PANEL;       // bytes of a [64][DH] tile
+  static constexpr int SW = PB == 128 ? SW128 : SW64;
+  static_assert(BYTES % 1024 == 0, "tiles start on 1024-byte boundaries");
+};
+
+// Rows [row, row + 64) and columns [col, col + DH) of `map` into a tile.
+template <int DH>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, int col,
+                                          int row, uint64_t* bar) {
+  using L = Tile<DH>;
+#pragma unroll
+  for (int i = 0; i < L::NP; ++i) tma_load_2d(dst + i * L::PANEL, map, col + i * L::PW, row, bar);
 }
 
 // ------------------------------------------------------------ host: tensor maps
@@ -273,6 +397,35 @@ inline int make_tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+// The maps of N packed bf16 tensors [T][H * dh], read in 64-row boxes of one
+// panel. Same return codes as make_tile_map.
+template <int N>
+inline int make_row_maps(CUtensorMap (&m)[N], const void* const (&x)[N], int T, int H, int dh) {
+  const int pw = dh < 64 ? dh : 64;
+  for (int i = 0; i < N; ++i) {
+    const int err = make_tile_map(&m[i], x[i], T, (uint64_t)H * dh, (uint64_t)H * dh,
+                                  TILE_ROWS, pw);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// ------------------------------------------------------------ host: launch
+template <class T>
+struct same { using type = T; };
+
+// Launch `kern` with `smem` bytes of dynamic shared memory; the CUDA error
+// code of the launch (0 on success).
+template <typename... A>
+int launch(void (*kern)(A...), size_t smem, dim3 grid, int threads, cudaStream_t st,
+           typename same<A>::type... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90

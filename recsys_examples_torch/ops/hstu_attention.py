@@ -8,8 +8,9 @@ takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv); with
 a relative attention bias `rab` the three kernels of K4 run instead (forward,
 dq + drab, dk/dv):
   - CUDA tensors launch the hand-written kernels (bf16, head dims
-    32/64/128/256) or raise: K1 and K4 from `csrc/hstu_attention.cu`, K2 and
-    K3 (wgmma, TMA, warp-specialised) from `csrc/hstu_attention_bwd.cu`;
+    32/64/128/256) or raise: K1 from `csrc/hstu_attention_fwd.cu`, K2, K3
+    and K4's dq + drab from `csrc/hstu_attention_bwd.cu` (all wgmma, TMA,
+    warp-specialised), K4's forward and dk/dv from `csrc/hstu_attention.cu`;
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
 Each kernel wrapper counts its launches in `.launches`.
 
@@ -54,26 +55,28 @@ class AttnOptions:
 
 
 # ------------------------------------------------------------ CUDA wrappers
-_COMMON = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 \
-    + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p]     # rab, drab, their strides and flags; the stream
+# entry: (library, tensor pointers, whether it takes T (the wgmma kernels'
+# TMA maps), whether it takes the bias arguments)
 _ENTRIES = {
-    "hstu_attn_fwd_launch": 4,        # q, k, v, out
-    "hstu_attn_bwd_dq_launch": 5,     # q, k, v, dO, dq
-    "hstu_attn_bwd_dkv_launch": 6,    # q, k, v, dO, dk, dv
+    "hstu_attn_fwd_launch": ("hstu_attention_fwd", 4, True, False),       # q, k, v, out
+    "hstu_attn_bwd_dq_launch": ("hstu_attention_bwd", 5, True, False),    # q, k, v, dO, dq
+    "hstu_attn_bwd_dkv_launch": ("hstu_attention_bwd", 6, True, False),   # ..., dk, dv
+    "hstu_attn_rab_bwd_dq_launch": ("hstu_attention_bwd", 5, True, True),
+    "hstu_attn_rab_fwd_launch": ("hstu_attention", 4, False, True),
+    "hstu_attn_rab_bwd_dkv_launch": ("hstu_attention", 6, False, True),
 }
-# csrc/hstu_attention_bwd.cu's K2 and K3: no bias; T rows for the TMA maps
-_BWD_COMMON = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# rab, drab, their batch and head strides, row stride, dtype and atomic flags
+_RAB_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
 
 
-def _fn(entry: str, lib: str = "hstu_attention"):
+def _fn(entry: str):
     from recsys_examples_torch.utils import cuda_build
 
+    lib, n_ptr, tma, with_rab = _ENTRIES[entry]
     fn = getattr(cuda_build.load(lib), entry)
-    fn.argtypes = [ctypes.c_void_p] * _ENTRIES[entry] + (
-        _COMMON if lib == "hstu_attention" else _BWD_COMMON)
+    fn.argtypes = [ctypes.c_void_p] * (n_ptr + 3) + [ctypes.c_int] * (5 if tma else 4) \
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + (_RAB_ARGS if with_rab else []) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -142,38 +145,18 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
     """Check the operands and launch `entry` on the current stream."""
     B, H, dh, dev = _check_operands(entry, tensors, torch.bfloat16, seq_offsets,
                                     num_contextuals, num_targets, opts)
+    _, _, tma, with_rab = _ENTRIES[entry]
+    rab_args = _rab_args(rab, drab, B, H, opts, dev) if with_rab else ()
     fn = _fn(entry)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = fn(
             *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
             seq_offsets.data_ptr(), ptr(num_contextuals), ptr(num_targets),
-            B, H, dh, opts.max_seqlen, float(opts.alpha),
-            1.0 / float(opts.scaling_seqlen), int(opts.causal),
-            opts.target_group_size, opts.max_attn_len,
-            opts.min_full_attn_seq_len, *_rab_args(rab, drab, B, H, opts, dev),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: error {err}")
-
-
-def _launch_bwd(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
-                opts: AttnOptions):
-    """Check the operands and launch K2 or K3 (`entry` of
-    `csrc/hstu_attention_bwd.cu`) on the current stream."""
-    B, H, dh, dev = _check_operands(entry, tensors, torch.bfloat16, seq_offsets,
-                                    num_contextuals, num_targets, opts)
-    fn = _fn(entry, "hstu_attention_bwd")
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        err = fn(
-            *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
-            seq_offsets.data_ptr(), ptr(num_contextuals), ptr(num_targets),
-            tensors[0].shape[0], B, H, dh, opts.max_seqlen, float(opts.alpha),
-            1.0 / float(opts.scaling_seqlen), int(opts.causal),
+            *((tensors[0].shape[0],) if tma else ()), B, H, dh, opts.max_seqlen,
+            float(opts.alpha), 1.0 / float(opts.scaling_seqlen), int(opts.causal),
             opts.target_group_size, opts.max_attn_len, opts.min_full_attn_seq_len,
-            torch.cuda.current_stream(dev).cuda_stream,
+            *rab_args, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} failed: error {err}")
@@ -193,8 +176,8 @@ def hstu_attn_bwd_dq_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                           num_targets, opts: AttnOptions) -> torch.Tensor:
     """K2."""
     dq = torch.zeros_like(q)
-    _launch_bwd("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
-                num_contextuals, num_targets, opts)
+    _launch("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
+            num_contextuals, num_targets, opts)
     hstu_attn_bwd_dq_cuda.launches += 1
     return dq
 
@@ -204,8 +187,8 @@ def hstu_attn_bwd_dkv_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3."""
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    _launch_bwd("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
-                num_contextuals, num_targets, opts)
+    _launch("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
+            num_contextuals, num_targets, opts)
     hstu_attn_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -215,7 +198,7 @@ def hstu_attn_rab_fwd_cuda(q, k, v, rab, seq_offsets, num_contextuals, num_targe
     """K4 forward: K1 with `rab` [B|1, H|1, Nq, Nk] (fp32 or bf16) added to
     the scores."""
     out = torch.zeros_like(q)
-    _launch("hstu_attn_fwd_launch", (q, k, v), (out,), seq_offsets,
+    _launch("hstu_attn_rab_fwd_launch", (q, k, v), (out,), seq_offsets,
             num_contextuals, num_targets, opts, rab)
     hstu_attn_rab_fwd_cuda.launches += 1
     return out
@@ -230,7 +213,7 @@ def hstu_attn_rab_bwd_dq_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
     dq = torch.zeros_like(q)
     drab = torch.zeros(rab.shape, dtype=torch.float32, device=rab.device) \
         if need_drab else None
-    _launch("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
+    _launch("hstu_attn_rab_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
             num_contextuals, num_targets, opts, rab, drab)
     hstu_attn_rab_bwd_dq_cuda.launches += 1
     return dq, drab
@@ -241,7 +224,7 @@ def hstu_attn_rab_bwd_dkv_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 dk, dv."""
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    _launch("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
+    _launch("hstu_attn_rab_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
             num_contextuals, num_targets, opts, rab)
     hstu_attn_rab_bwd_dkv_cuda.launches += 1
     return dk, dv

@@ -2,13 +2,13 @@
 backward (counterpart of recsys_examples_tpu/ops/hstu_attention_ref.py).
 
 These are the plain versions of the CUDA kernels K1 (forward) in
-`csrc/hstu_attention.cu`, K2 (dq) and K3 (dk/dv) in
+`csrc/hstu_attention_fwd.cu`, K2 (dq) and K3 (dk/dv) in
 `csrc/hstu_attention_bwd.cu`, with `rab` of K4 (the same three
 with a relative attention bias, and its gradient), and of K5 (the int8
 forward, `hstu_mha_int8_reference`): the CPU path of
 `ops.hstu_attention.hstu_attn_varlen`, and what `chip_smoke.py` holds the
 kernels against on the card. Beside them stand the plain statements of
-K2's and K3's tile plan.
+the tile plans of K1, K2 and K3.
 
 HSTU attention is SiLU attention, not softmax:
 
@@ -89,12 +89,14 @@ def get_valid_attn_mask(
 
 
 # ------------------------------------------------------------ tile plan
-# The plain statements of K2's and K3's tile plan (csrc/hstu_mask.cuh is a
-# line-by-line copy): which tiles a CTA visits, and which of them need no
-# mask or only its causal form. Positions are local to one sequence of
+# The plain statements of the tile plans of K1, K2 and K3 (csrc/hstu_mask.cuh
+# is a line-by-line copy): which tiles a CTA visits, and which of them need
+# no mask or only its causal form. Positions are local to one sequence of
 # length n with c contextual and t target rows (0 when absent); every tile
-# has BWD_TILE rows.
+# has BWD_TILE rows, and a K1 CTA holds FWD_ROWS query rows, BWD_TILE for
+# each of its two consumers.
 BWD_TILE = 64
+FWD_ROWS = 128
 
 
 def tile_fully_valid(q0: int, k0: int, n: int, c: int, t: int, rows: int = BWD_TILE, *,
@@ -134,6 +136,26 @@ def kv_tile_end(q0: int, n: int, c: int, rows: int = BWD_TILE, *, causal: bool,
     if not causal or (has_context and q0 < c):
         return n
     return min(n, q0 + rows)
+
+
+def fwd_cta_tiles(m0: int, n: int, c: int, *, causal: bool, has_context: bool) -> int:
+    """K1: how many key tiles the CTA of query rows [m0, m0 + FWD_ROWS)
+    walks: `kv_tile_end` of its rows, in BWD_TILE-row tiles (JAX's
+    `_kv_extent` at BQ = 128)."""
+    end = kv_tile_end(m0, n, c, FWD_ROWS, causal=causal, has_context=has_context)
+    return -(-end // BWD_TILE)
+
+
+def fwd_tiles(q0: int, n: int, c: int, *, causal: bool, has_context: bool) -> int:
+    """K1: how many key tiles the consumer of query rows [q0, q0 +
+    BWD_TILE) computes, from tile 0 on: up to its own `kv_tile_end`, and none
+    when its rows lie past the sequence. It releases the CTA's later tiles
+    untouched (under causal, the last tile of consumer 0, whose rows sit
+    above it, unless they are contextual)."""
+    if q0 >= n:
+        return 0
+    return -(-kv_tile_end(q0, n, c, BWD_TILE, causal=causal, has_context=has_context)
+             // BWD_TILE)
 
 
 def dkv_query_tiles(k0: int, n: int, c: int, rows: int = BWD_TILE, *, causal: bool,

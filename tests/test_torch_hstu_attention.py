@@ -152,13 +152,15 @@ def test_zero_length_sequence_and_unported_options():
 # ------------------------------------------------------------ K4: rab
 # (rab shape, lengths, max_seqlen, mask case): the two cases of
 # tests/test_pallas_hstu_attention.py:100-183, then the other broadcast and
-# a contextual + target-group mask
+# a contextual + target-group mask, and an odd row stride (N 131) as the
+# model's 8195 has
 RAB_CASES = {
     "full": ((2, 2, 256, 256), [200, 256], 256, "causal"),
     "broadcast_batch": ((1, 2, 128, 128), [100, 128], 128, "causal"),
     "broadcast_both": ((1, 1, 128, 128), [100, 0, 28], 128, "causal"),
     "broadcast_head_ctx_tgt": ((3, 1, 256, 256), [200, 37, 128], 256, "ctx_tgt_group"),
     "broadcast_batch_window": ((1, 2, 128, 128), [100, 128], 128, "local_window"),
+    "broadcast_batch_odd_n": ((1, 2, 131, 131), [100, 131, 67], 131, "causal"),
 }
 
 

@@ -1,9 +1,10 @@
-"""The tile plan of the backward kernels K2 (dq) and K3 (dk/dv): the plain
-statements in `ops/hstu_attention_ref.py` that `csrc/hstu_mask.cuh` copies
-line by line. Held against the dense mask of `get_valid_attn_mask` (a tile
-certified interior is all valid; the tiles a CTA visits cover every valid
-pair) and against the JAX kernel's own `_tile_fully_valid` and `_kv_extent`
-on the same scalars."""
+"""The tile plans of the forward K1 and the backward kernels K2 (dq) and K3
+(dk/dv): the plain statements in `ops/hstu_attention_ref.py` that
+`csrc/hstu_mask.cuh` copies line by line. Held against the dense mask of
+`get_valid_attn_mask` (a tile certified interior is all valid; the tiles a
+CTA or consumer visits cover every valid pair, the tiles it skips hold none)
+and against the JAX kernel's own `_tile_fully_valid` and `_kv_extent` on the
+same scalars."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,9 +14,12 @@ from hypothesis import strategies as st
 
 from recsys_examples_torch.ops.hstu_attention_ref import (
     BWD_TILE,
+    FWD_ROWS,
     causal_edge,
     causal_edge_valid,
     dkv_query_tiles,
+    fwd_cta_tiles,
+    fwd_tiles,
     get_valid_attn_mask,
     kv_tile_end,
     tile_fully_valid,
@@ -175,3 +179,99 @@ def test_tile_plan_matches_jax_predicates(sq):
             want = False if full is None else bool(full)
             assert tile_fully_valid(q0, k0, n, c, t, rows, causal=sq["causal"],
                                     max_attn_len=sq["window"]) == want, (q0, k0)
+
+
+# ------------------------------------------------------------ K1
+def _fwd_plan(sq):
+    """K1's plan of one sequence, CTA by CTA: (m0, the CTA's key tiles, and
+    per consumer (q0, its key tiles))."""
+    n, c, kw = sq["n"], sq["c"], _plan_kw(sq)
+    for m0 in range(0, n, FWD_ROWS):
+        consumers = [(q0, fwd_tiles(q0, n, c, **kw)) for q0 in (m0, m0 + BWD_TILE)]
+        yield m0, fwd_cta_tiles(m0, n, c, **kw), consumers
+
+
+def _check_fwd_plan(sq):
+    """Every valid pair of a consumer's rows lies in the key tiles it
+    computes, every tile of the CTA it skips holds none, and the CTA walks
+    exactly as far as its furthest consumer."""
+    valid = _dense({**sq, "rows": FWD_ROWS})
+    for m0, n_cta, consumers in _fwd_plan(sq):
+        assert n_cta == max(k for _, k in consumers), m0
+        for q0, mine in consumers:
+            rows = valid[q0:q0 + BWD_TILE]
+            assert 0 <= mine <= n_cta, (q0, mine, n_cta)
+            # the tiles it skips, and every column past them, hold no valid pair
+            assert not rows[:, mine * BWD_TILE:].any(), (q0, mine)
+            for k0 in range(0, mine * BWD_TILE, BWD_TILE):
+                if tile_fully_valid(q0, k0, sq["n"], sq["c"], sq["t"], causal=sq["causal"],
+                                    max_attn_len=sq["window"]):
+                    assert rows[:, k0:k0 + BWD_TILE].all(), (q0, k0)
+
+
+@settings(max_examples=150, deadline=None)
+@given(sequences())
+def test_fwd_tile_plan_against_dense_mask(sq):
+    _check_fwd_plan(sq)
+
+
+# K1's 128-row CTA at its edges: lengths around 64, 128 and 192 rows (193
+# leaves consumer 1 of the second CTA without rows), contextual rows across
+# the consumer boundary (c 70) and past the CTA (c 130)
+FWD_EDGE_CASES = [
+    dict(n=n, c=0, t=0, has_ctx=False, has_tgt=False, group=1, causal=True, window=0,
+         min_full=0, rows=BWD_TILE) for n in (63, 64, 65, 127, 128, 129, 191, 192, 193)
+] + [
+    dict(n=n, c=c, t=0, has_ctx=True, has_tgt=False, group=1, causal=True, window=0,
+         min_full=0, rows=BWD_TILE) for n, c in ((200, 70), (300, 130), (129, 70))
+] + [
+    dict(n=300, c=70, t=40, has_ctx=True, has_tgt=True, group=2, causal=True, window=0,
+         min_full=0, rows=BWD_TILE),
+    dict(n=193, c=0, t=0, has_ctx=False, has_tgt=False, group=1, causal=False, window=0,
+         min_full=0, rows=BWD_TILE),
+]
+
+
+@pytest.mark.parametrize("sq", FWD_EDGE_CASES,
+                         ids=[f"n{s['n']}_c{s['c']}_t{s['t']}"
+                              f"{'' if s['causal'] else '_noncausal'}" for s in FWD_EDGE_CASES])
+def test_fwd_tile_plan_at_cta_edges(sq):
+    _check_fwd_plan(sq)
+
+
+def test_fwd_consumer_tiles_under_causal():
+    """Without contextual rows consumer 0 skips the CTA's last key tile (it
+    lies above its rows), consumer 1 computes every tile; with contextual
+    rows in consumer 0's range it walks to the end; a consumer whose rows
+    lie past the sequence computes nothing."""
+    kw = dict(causal=True, has_context=False)
+    n = 3 * FWD_ROWS
+    for m0 in range(0, n, FWD_ROWS):
+        n_cta = fwd_cta_tiles(m0, n, 0, **kw)
+        assert fwd_tiles(m0, n, 0, **kw) == n_cta - 1
+        assert fwd_tiles(m0 + BWD_TILE, n, 0, **kw) == n_cta
+    ctx = dict(causal=True, has_context=True)
+    assert fwd_tiles(0, n, 3, **ctx) == fwd_cta_tiles(0, n, 3, **ctx) == n // BWD_TILE
+    assert fwd_tiles(BWD_TILE, n, 3, **ctx) == 2
+    assert fwd_tiles(BWD_TILE, 64, 0, **kw) == 0 and fwd_cta_tiles(0, 64, 0, **kw) == 1
+
+
+@settings(max_examples=60, deadline=None)
+@given(sequences(overlap=False))
+def test_fwd_tile_plan_matches_jax_predicates(sq):
+    """Where contextual and target rows fit in the sequence: the CTA's extent
+    is JAX's `_kv_extent` at BQ = 128, and each consumer's certificate of
+    each tile it computes is JAX's `_tile_fully_valid` at 64 rows."""
+    n, c, t = sq["n"], sq["c"], sq["t"]
+    for m0, n_cta, consumers in _fwd_plan(sq):
+        want = _kv_extent(jnp.int32(m0), jnp.int32(n), jnp.int32(c), FWD_ROWS,
+                          causal=sq["causal"], has_context=sq["has_ctx"])
+        assert n_cta == -(-int(want) // BWD_TILE), m0
+        for q0, mine in consumers:
+            for k0 in range(0, mine * BWD_TILE, BWD_TILE):
+                full = _tile_fully_valid(jnp.int32(q0), jnp.int32(k0), jnp.int32(n),
+                                         jnp.int32(t), BWD_TILE, BWD_TILE, causal=sq["causal"],
+                                         max_attn_len=sq["window"], has_targets=sq["has_tgt"])
+                want = False if full is None else bool(full)
+                assert tile_fully_valid(q0, k0, n, c, t, causal=sq["causal"],
+                                        max_attn_len=sq["window"]) == want, (q0, k0)

@@ -9,10 +9,9 @@ Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
 Phases (any failure exits non-zero):
   1. build   nvcc builds every kernel of the path from csrc/, in parallel;
-             no instance spills or passes its library's register ceiling
-             (the mma.sync bias kernels of hstu_attention.cu excepted), no
-             setmaxnreg is dropped and ptxas serialises no wgmma chain of the
-             wgmma libraries. (b) the wgmma descriptors, TMA panels
+             no instance spills or passes its library's register ceiling,
+             no setmaxnreg is dropped and ptxas serialises no wgmma chain of
+             the wgmma libraries. (b) the wgmma descriptors, TMA panels
              and register-A fragments of K1 and K2/K3, one tile pair per head
              dim, against torch.matmul.
   2. kernel  paged SiLU delta attention against its plain version in bf16 at
@@ -65,8 +64,13 @@ Phases (any failure exits non-zero):
              fp32 and bf16, a row stride beyond max_seqlen, the mask families
              and lengths of phase 5, head dims 256 and 64, an odd row stride
              (N 131) in fp32 and bf16 at [1,H,N,N] (drab by atomics) and
-             [B,H,N,N] (stored); K4's dq and drab with a [B,H,N,N] bias
-             launched twice and equal bit for bit.
+             [B,H,N,N] (stored); K4's forward at K1's 128-row CTA edges
+             (lengths 191-193, consumer 1 without rows, c 70 and 130) and
+             its dk/dv at K3's 64-row tile edges (lengths 63-65, 127-129)
+             and on a batch of whole tiles (interior tiles skip the mask
+             but add the bias), each with an fp32 [1,H,N,N+3] and a bf16
+             [B,H,N,N+3] bias (odd row stride); K4's dq and drab with a
+             [B,H,N,N] bias launched twice and equal bit for bit.
   9. step    (a) bench.py's whole train step at full width: phase 6b's model
              with `item` and `user_id` in two dynamic tables (50M-id
              vocabularies, 4.2M rows each), a warm-up pass over the pool,
@@ -74,8 +78,9 @@ Phases (any failure exits non-zero):
              counters, a profiled step, and bench.py's JSON line; (b) the
              same step with use_relative_attention_bias (128 buckets, max
              distance 1024) for 2 timed steps, K4's launch counts of 8 per
-             step, K4's times at the full-width shape beside K1-K3's (its dq
-             launched twice, dq equal bit for bit), peak memory, a profiled
+             step, K4's times at the full-width shape beside K1-K3's (its
+             kernels launched twice, out, dq, dk and dv equal bit for bit),
+             peak memory, a profiled
              step; (c) phase 6a's kernels-against-plain step and its
              faulted control once more with dynamic tables and the bias.
  10. beam    K7 (beam-decode attention) through `beam_decode_attn` against
@@ -145,6 +150,13 @@ def cuda_time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def median_time_ms(fn, iters, reps=3):
+    """Median of `reps` readings of cuda_time_ms: one reading lengthened by a
+    stall (once 5x a kernel's time at the main shape) does not become the
+    kernel's time."""
+    return statistics.median(cuda_time_ms(fn, iters) for _ in range(reps))
+
+
 def within(err, ref_scale):
     """The repo's kernel pass rule (tools/pallas_parity.py): err below
     2e-2 * max|ref| + 1e-3."""
@@ -181,13 +193,12 @@ def ptxas_entries(report):
 
 # Most registers of any kernel instance on the path, per library, as built
 # for sm_90a by CUDA 12.8's nvcc (this script's own report); none of them
-# spills. The mma.sync bias kernels of hstu_attention (K4's forward and
-# dk/dv) are not held to it; its int8 forward (K5) keeps the ceiling it
-# had. K1 (hstu_attention_fwd),
-# K2, K3 and K4's dq (hstu_attention_bwd) launch 384 threads for one CTA per
-# SM, so ptxas holds them to 168 at entry; setmaxnreg then moves the
-# producer's registers to the two consumer warpgroups (240 each in K1, 232
-# in the others).
+# may spill. hstu_attention holds the int8 forward (K5) alone. K1 and K4's
+# forward (hstu_attention_fwd), K2, K3 and K4's dq and dk/dv
+# (hstu_attention_bwd) launch 384 threads for one CTA per SM, so ptxas
+# holds them to 168 at entry; setmaxnreg then moves the producer's
+# registers to the two consumer warpgroups (240 each in the forward, 232 in
+# the backward).
 REGISTER_CEILING = {"hstu_attention": 242, "hstu_attention_fwd": 168,
                     "hstu_attention_bwd": 168, "paged_hstu_attention": 128,
                     "beam_decode_attention": 148}
@@ -213,7 +224,7 @@ def phase_build():
             log(f"  ptxas {entry}: {regs} registers, {spill} bytes spilled")
             # the layout checks of phase 1b run 128 or 256 threads: no ceiling
             over = regs > REGISTER_CEILING[name] and "tile_check" not in entry
-            if not (name == "hstu_attention" and "rab" in entry) and (over or spill):
+            if over or spill:
                 raise SystemExit(f"phase1: {entry} grew to {regs} registers, {spill} spilled")
 
 
@@ -470,16 +481,20 @@ def phase_main(attn):
 
 
 # The training attention kernels by name (regular expressions on the
-# profiler's kernel names, mangled or not): K1 (hstu_attention_fwd.cu), K2,
-# K3 and K4's dq, the RAB instance of K2's template (hstu_attention_bwd.cu),
-# K4's forward and dk/dv (hstu_attention.cu).
-ATTN_KERNELS = {"K1": r"fwd_wgmma_kernel",
-                "K2": r"dq_wgmma_kernel(?:ILi\d+ELb0E|<\d+, false>)",
-                "K3": r"dkv_wgmma_kernel"}
-RAB_KERNELS = {"K4 fwd": r"fwd_rab_kernel",
-               "K4 dq": r"dq_wgmma_kernel(?:ILi\d+ELb1E|<\d+, true>)",
-               "K4 dk/dv": r"dkv_rab_kernel"}
-ATTN_NAMES = ("wgmma_kernel", "rab_kernel")
+# profiler's kernel names, mangled or not): K1 and K4's forward
+# (hstu_attention_fwd.cu), K2, K3 and K4's dq and dk/dv
+# (hstu_attention_bwd.cu); K4's are the RAB instances of K1-K3's templates.
+def _instance(kernel, rab):
+    return kernel + (r"(?:ILi\d+ELb1E|<\d+, true>)" if rab else r"(?:ILi\d+ELb0E|<\d+, false>)")
+
+
+ATTN_KERNELS = {"K1": _instance("fwd_wgmma_kernel", False),
+                "K2": _instance("dq_wgmma_kernel", False),
+                "K3": _instance("dkv_wgmma_kernel", False)}
+RAB_KERNELS = {"K4 fwd": _instance("fwd_wgmma_kernel", True),
+               "K4 dq": _instance("dq_wgmma_kernel", True),
+               "K4 dk/dv": _instance("dkv_wgmma_kernel", True)}
+ATTN_NAMES = ("wgmma_kernel",)
 
 
 def profile_call(fn, label, top=10, groups=None, split=None):
@@ -779,6 +794,23 @@ def phase_rab():
             name = f"odd131_{kind}_{tag}"
             res[name] = check_jagged_case(name, gen, odd, H, dh, 131, {}, rab_shape=shape,
                                           rab_dtype=dtype, phase="phase8")
+    # K4's forward at K1's 128-row CTA edges (lengths 191-193; consumer 1
+    # without rows at 64, 191 and 1; contextual rows across the consumer
+    # boundary, c 70, and past the CTA, c 130), its dk/dv at K3's 64-row tile
+    # edges and on whole tiles, whose interior tiles skip the mask but add
+    # the bias; an odd row stride (N + 3), fp32 broadcast over the batch and
+    # bf16 per sequence, whose cell pairs are unaligned on every other row
+    edges = {
+        "cta_edges": ([191, 192, 193, 64, 1], 256, None),
+        "ctx70_130": ([300, 200, 260, 129], 320, [70, 130, 130, 70]),
+        "tile_edges": ([63, 64, 65, 127, 128, 129], 256, None),
+        "interior": ([512, 256, 1024], 1024, None),
+    }
+    for name, (lens, n, c) in edges.items():
+        for dtype, tag, b in ((f32, "f32", 1), (bf16, "bf16", len(lens))):
+            res[f"{name}_{tag}"] = check_jagged_case(
+                f"{name}_{tag}", gen, lens, H, dh, n, {}, c, rab_shape=(b, H, n, n + 3),
+                rab_dtype=dtype, phase="phase8")
     rab_dq_twice(gen, lengths, H, dh, N, dict(target_group_size=2), ctx, tgt)
     return res
 
@@ -929,8 +961,8 @@ def main_shape_kernels(batch, with_rab=False, tag="phase6"):
     if with_rab:    # out, dq, drab, dk, dv -> out, dq, dk, dv, drab
         got = [got[0], got[1], got[3], got[4], got[2]]
         # in turns: without, with, with, without the bias
-        t = {kk: [cuda_time_ms(no_rab[kk], 3), cuda_time_ms(fns[kk], 3),
-                  cuda_time_ms(fns[kk], 3), cuda_time_ms(no_rab[kk], 3)] for kk in fns}
+        t = {kk: [median_time_ms(no_rab[kk], 3), median_time_ms(fns[kk], 3),
+                  median_time_ms(fns[kk], 3), median_time_ms(no_rab[kk], 3)] for kk in fns}
         ms = {kk: (v[1] + v[2]) / 2 for kk, v in t.items()}
         ms_no_rab = {kk: (v[0] + v[3]) / 2 for kk, v in t.items()}
         # the bias's two costs in K4's dq: its reads alone, then its reads
@@ -938,21 +970,19 @@ def main_shape_kernels(batch, with_rab=False, tag="phase6"):
         ms_no_drab = cuda_time_ms(lambda: ha.hstu_attn_rab_bwd_dq_cuda(
             q, k, v, do, rab, *bargs[4:], need_drab=False), 3)
     else:
-        ms = {kk: cuda_time_ms(f, 5) for kk, f in fns.items()}
+        ms = {kk: median_time_ms(f, 5) for kk, f in fns.items()}
 
-    # K1-K3 and K4's dq own their output rows: no order in their sums (K4's
-    # drab, summed over the batch by atomics, has one)
-    if with_rab:
-        again = {"dq": fns["dq"]()[0]}
-        same = {"dq": torch.equal(got[1], again["dq"])}
-    else:
-        again = dict(zip(("out", "dq", "dk", "dv"), [fns["fwd"](), fns["dq"](), *fns["dkv"]()]))
-        same = {kk: torch.equal(g, again[kk]) for kk, g in zip(("out", "dq", "dk", "dv"), got)}
+    # K1-K4 own their output rows: no order in their sums (K4's drab, summed
+    # over the batch by atomics, has one)
+    dq_again = fns["dq"]()
+    again = dict(zip(("out", "dq", "dk", "dv"), [
+        fns["fwd"](), dq_again[0] if with_rab else dq_again, *fns["dkv"]()]))
+    same = {kk: torch.equal(g, again[kk]) for kk, g in zip(("out", "dq", "dk", "dv"), got)}
     log(f"{tag} main-shape determinism: a second launch equals the first bit for bit: "
         + ", ".join(f"{kk} {ok}" for kk, ok in same.items()))
     if not all(same.values()):
         raise SystemExit(f"{tag}: a kernel differs between two launches on the same inputs")
-    del again
+    del again, dq_again
     names = ("out", "dq", "dk", "dv") + (("drab",) if with_rab else ())
     errs = dict.fromkeys(names, 0.0)
     scales = dict.fromkeys(errs, 0.0)
@@ -2062,7 +2092,7 @@ def main():
             "name": name,
             "route": "cuda",
             "source": "recsys_examples_torch/csrc/"
-                      + ("hstu_attention_bwd.cu" if kk == "dq" else "hstu_attention.cu"),
+                      + ("hstu_attention_fwd.cu" if kk == "fwd" else "hstu_attention_bwd.cu"),
             "replaces": "recsys_examples_tpu/ops/pallas/hstu_attention.py:1482",
             "launches": shape["launches"][i],   # the step with the bias, phase 9b
             "max_abs_err": max([shape["errs"][t] for t in tags]

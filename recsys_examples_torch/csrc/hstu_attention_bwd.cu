@@ -1,11 +1,11 @@
 // The backward of the jagged SiLU (HSTU) attention for Hopper (sm_90a): dq
-// (K2) and dk/dv (K3), and dq + drab with a relative attention bias (K4's
-// dq), on wgmma with TMA-fed tiles.
+// (K2) and dk/dv (K3), and with a relative attention bias dq + drab and
+// dk/dv (K4's backward), on wgmma with TMA-fed tiles.
 //
 // Replaces the TPU kernels `_bwd_dq_kernel` (:448) and `_bwd_dkv_kernel`
 // (:677) of recsys_examples_tpu/ops/pallas/hstu_attention.py, both launched
-// by `_hstu_bwd_impl` (:1202), and the dq kernel's `has_rab` branch (:549-629)
-// of `hstu_attn_varlen_rab` (:1482). For each sequence b of the packed [T, H, D]
+// by `_hstu_bwd_impl` (:1202), and their `has_rab` branches (dq :549-629,
+// dk/dv :861-874) reached through `hstu_attn_varlen_rab` (:1482). For each sequence b of the packed [T, H, D]
 // bf16 tensors (rows seq_offsets[b] .. seq_offsets[b + 1]) and each head:
 //   S = alpha q k^T,  P = silu(S) / scaling * mask,  dP = dO v^T,
 //   dS = dP * dsilu(S) * mask / scaling
@@ -17,10 +17,11 @@
 // zero-fills the outputs. Each CTA owns its output rows, so both kernels are
 // deterministic (no atomics).
 //
-// K4's dq is the RAB = true instance of K2's template. With rab [B|1, H|1,
-// Nq, Nk] (fp32 or bf16, positions local to the sequence):
+// K4's dq is the RAB = true instance of K2's template, K4's dk/dv that of
+// K3's. With rab [B|1, H|1, Nq, Nk] (fp32 or bf16, positions local to the
+// sequence):
 //   x = alpha S + rab,  g_rab = dP * dsilu(x) * mask / scaling,
-//   dS = alpha g_rab,   drab += g_rab
+//   dS = alpha g_rab,   drab += g_rab (dq only)
 // drab is an fp32 tensor of rab's shape that the caller zero-fills. A cell of
 // a broadcast dim is shared by the CTAs of every sequence (or head), which
 // run in no order: those adds are fp32 atomics, so drab's last bits depend on
@@ -38,7 +39,15 @@
 // (22,458 tokens, a [1, 4, 8195, 8195] fp32 bias) about 480 MB each way,
 // 0.29 ms at 3.35 TB/s if L2 reuses none of it, beside the 0.186 ms of its
 // products (chip_smoke.py's bound counts each cell once: 167 MB each way).
-// The drab atomics, not the products, set its time (PERF.md).
+// The drab atomics, not the products, set its time (PERF.md). K4's dk/dv
+// reads the bias transposed (its score blocks' rows are keys): each consumer
+// thread loads its 16 cells, rab[query][key], with 8 consecutive keys of 4
+// queries a warp load, a tile ahead: right after its SiLU pass has used
+// this tile's cells, so the loads fly behind the tile's products and the
+// next tile's chains (loaded just before the chains, as dq does, they left
+// dk/dv 11% slower: PERF.md). It writes no drab, so it has no atomics and
+// stays deterministic, and shared memory, which K3 fills to 225 KB at
+// D = 256, needs no room for it.
 //
 // What bounds them on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s):
 // operations. Every valid (query, key) pair costs K2 three products (S, dP,
@@ -190,13 +199,15 @@ constexpr size_t smem_bytes() {
 // mask * alpha / scaling (0 where masked), and with `sp` P in bf16 into
 // that product tile. The block's rows are `r0 + acc_row`, its columns
 // `c0 + acc_col` of the tile; with TRANS the mask reads (column, row), K3's
-// transposed blocks. With RAB (K4's dq): x = alpha S + bias, g leaves out
-// alpha (dP g is drab's share), and bit i of `okm` says element i is valid.
-template <Mask MASK, bool TRANS, bool RAB>
+// transposed blocks. With BIAS (K4): x = alpha S + bias. With DRAB (K4's dq)
+// besides: g leaves out alpha (dP g is drab's share), and bit i of `okm`
+// says element i is valid.
+template <Mask MASK, bool TRANS, bool BIAS, bool DRAB>
 __device__ __forceinline__ void silu_part(const float (&sc)[16], float (&g)[16], unsigned char* sp,
                                           const float* bias, uint32_t* okm, const Params& p,
                                           const Seq& s, int r0, int c0, int w, int t) {
-  const float g_scale = RAB ? p.inv_scaling : p.inv_scaling * p.alpha;
+  static_assert(BIAS || !DRAB, "drab comes with a bias");
+  const float g_scale = DRAB ? p.inv_scaling : p.inv_scaling * p.alpha;
   uint32_t pk[8];
 #pragma unroll
   for (int i = 0; i < 16; i += 2) {
@@ -205,13 +216,13 @@ __device__ __forceinline__ void silu_part(const float (&sc)[16], float (&g)[16],
     for (int e = 0; e < 2; ++e) {
       const int r = sm90::acc_row(t, i + e), c = w * 32 + sm90::acc_col(t, i + e);
       float x = sc[i + e] * p.alpha;
-      if constexpr (RAB) x += bias[i + e];
+      if constexpr (BIAS) x += bias[i + e];
       const float sg = sigmoid(x);
       const int qr = TRANS ? c0 + c : r0 + r, kc = TRANS ? r0 + r : c0 + c;
       const bool ok = mask_ok<MASK>(p, s, qr, kc);
       pv[e] = ok ? x * sg * p.inv_scaling : 0.f;
       g[i + e] = ok ? sg * (1.f + x * (1.f - sg)) * g_scale : 0.f;
-      if constexpr (RAB) *okm |= (uint32_t)ok << (i + e);
+      if constexpr (DRAB) *okm |= (uint32_t)ok << (i + e);
     }
     pk[i / 2] = sm90::pack_bf16(pv[0], pv[1]);
   }
@@ -220,18 +231,18 @@ __device__ __forceinline__ void silu_part(const float (&sc)[16], float (&g)[16],
 
 // silu_part with the tile's mask form: tile rows [q0, q0 + 64) of queries
 // and [k0, k0 + 64) of keys.
-template <bool TRANS, bool RAB = false>
+template <bool TRANS, bool BIAS = false, bool DRAB = false>
 __device__ __forceinline__ void silu_tile(const float (&sc)[16], float (&g)[16], unsigned char* sp,
                                           const Params& p, const Seq& s, int q0, int k0, int w,
                                           int t, const float* bias = nullptr,
                                           uint32_t* okm = nullptr) {
   const int r0 = TRANS ? k0 : q0, c0 = TRANS ? q0 : k0;
   if (s.tile_fully_valid(p, q0, k0, BT))
-    silu_part<NONE, TRANS, RAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
+    silu_part<NONE, TRANS, BIAS, DRAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
   else if (s.causal_edge(p))
-    silu_part<CAUSAL, TRANS, RAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
+    silu_part<CAUSAL, TRANS, BIAS, DRAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
   else
-    silu_part<FULL, TRANS, RAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
+    silu_part<FULL, TRANS, BIAS, DRAB>(sc, g, sp, bias, okm, p, s, r0, c0, w, t);
 }
 
 // dS = dP * g, in bf16, into the product tile `ss`.
@@ -244,13 +255,16 @@ __device__ __forceinline__ void ds_part(const float (&dp)[16], const float (&g)[
 }
 
 // K4: the bias of a consumer's 16 score elements, rows row0 + acc_row and
-// columns col0 + acc_col of the sequence; 0 past its end.
+// columns col0 + acc_col of the block; 0 past the sequence's end. With TRANS
+// (dk/dv) the block's rows are keys and its columns queries, so element
+// (r, c) reads rab[c][r].
+template <bool TRANS>
 __device__ __forceinline__ void load_bias(float (&b)[16], const Rab& rab, size_t plane, int n,
                                           int row0, int col0, int t) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int r = row0 + sm90::acc_row(t, i), c = col0 + sm90::acc_col(t, i);
-    b[i] = r < n && c < n ? rab.at(plane, r, c) : 0.f;
+    b[i] = r < n && c < n ? (TRANS ? rab.at(plane, c, r) : rab.at(plane, r, c)) : 0.f;
   }
 }
 
@@ -276,12 +290,12 @@ __device__ __forceinline__ void ds_rab_part(const float (&dp)[16], const float (
   put_block(ss, w * 32, pk, t);
 }
 
-// ------------------------------------------------------------ K3: dk, dv
-template <int DH>
+// ------------------------------------------------------------ K3: dk, dv (RAB: K4's dk, dv)
+template <int DH, bool RAB>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, Params p) {
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, Params p, Rab rab) {
   using L = Tile<DH>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sK = sm90::align1024(smem_raw);
@@ -298,6 +312,7 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
   if (n0 >= s.n) return;
   const int col = blockIdx.y * DH;
   const QueryTiles tiles(p, s, n0, BT);
+  const size_t plane = RAB ? rab.plane(blockIdx.z, blockIdx.y) : 0;
   if (threadIdx.x == 0) {
     ring->init(NC * 128);
     sm90::mbar_init(kv_full, 1);
@@ -325,6 +340,8 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
     float dka[L::HALF / 2], dva[L::HALF / 2];
 #pragma unroll
     for (int i = 0; i < L::HALF / 2; ++i) dka[i] = dva[i] = 0.f;
+    float bias[16];   // K4: the bias of this tile's score block, loaded a tile ahead
+    if constexpr (RAB) load_bias<true>(bias, rab, plane, s.n, n0, tiles.row0(0) + wg * 32, t);
     sm90::mbar_wait(kv_full, 0);
     for (int i = 0; i < tiles.count; ++i) {
       const unsigned char* q_s = sQ + (i % STAGES) * L::BYTES;
@@ -344,7 +361,10 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();
       sm90::fence_regs(st);
-      silu_tile<true>(st, g, sp, p, s, q0, n0, wg, t);
+      silu_tile<true, RAB>(st, g, sp, p, s, q0, n0, wg, t, bias);
+      if constexpr (RAB)   // the next tile's bias flies behind this tile's products
+        if (i + 1 < tiles.count)
+          load_bias<true>(bias, rab, plane, s.n, n0, tiles.row0(i + 1) + wg * 32, t);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dpt);
       ds_part(dpt, g, ss, wg, t);
@@ -430,7 +450,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
       // loads are issued first, so they fly behind the chains.
       float sc[16], dp[16], g[16], bias[16];
       uint32_t okm = 0;
-      if constexpr (RAB) load_bias(bias, rab, plane, s.n, m0, k0 + wg * 32, t);
+      if constexpr (RAB) load_bias<false>(bias, rab, plane, s.n, m0, k0 + wg * 32, t);
       sm90::wgmma_fence();
       score_chain<DH>(sc, sQ, k_s, wg * 32);
       sm90::wgmma_commit();
@@ -438,7 +458,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();
       sm90::fence_regs(sc);
-      silu_tile<false, RAB>(sc, g, nullptr, p, s, m0, k0, wg, t, bias, &okm);
+      silu_tile<false, RAB, RAB>(sc, g, nullptr, p, s, m0, k0, wg, t, bias, &okm);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dp);
       if constexpr (RAB)
@@ -531,12 +551,12 @@ using sm90::launch;
 
 }  // namespace
 
-// All three take bf16 [T, H, dh] q, k, v and dO (dh 32, 64, 128 or 256;
+// All four take bf16 [T, H, dh] q, k, v and dO (dh 32, 64, 128 or 256;
 // 16-byte aligned), int32 seq_offsets [B + 1] and optional int32
 // num_contextuals / num_targets [B] (null when absent), and write the bf16
 // gradients of the rows the sequences own. Each returns the CUDA error code
 // of its launch (0 on success), -1 for an unsupported head dim or group size
-// (or, for K4's dq, a missing bias), -2 / -3 when a tensor map cannot be
+// (or, for K4's, a missing bias), -2 / -3 when a tensor map cannot be
 // made.
 #define BWD_ARGS                                                                 \
   const int *seq_offsets, const int *num_contextuals, const int *num_targets,    \
@@ -588,8 +608,24 @@ extern "C" int hstu_attn_bwd_dkv_launch(const void* q, const void* k, const void
                                         void* stream) {
   BWD_PROLOGUE
   bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
-  BWD_DISPATCH_DH(dh, launch(dkv_wgmma_kernel<DH>, smem_bytes<DH, 4>(), grid, NTHREADS, st,
-                             m[0], m[1], m[2], m[3], dK, dV, p))
+  const Rab none{};
+  BWD_DISPATCH_DH(dh, launch(dkv_wgmma_kernel<DH, false>, smem_bytes<DH, 4>(), grid, NTHREADS,
+                             st, m[0], m[1], m[2], m[3], dK, dV, p, none))
+}
+
+// K4's dk/dv: the bias arguments of K4's dq; `drab` and `drab_atomic` are
+// not read (dk/dv writes no bias gradient).
+extern "C" int hstu_attn_rab_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                            const void* dout, void* dk, void* dv, BWD_ARGS,
+                                            const void* rab, void* drab, long long rab_sb,
+                                            long long rab_sh, int rab_nk, int rab_is_bf16,
+                                            int drab_atomic, void* stream) {
+  if (!rab) return -1;
+  BWD_PROLOGUE
+  bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
+  const Rab r{rab, nullptr, rab_sb, rab_sh, rab_nk, rab_is_bf16, 0};
+  BWD_DISPATCH_DH(dh, launch(dkv_wgmma_kernel<DH, true>, smem_bytes<DH, 4>(), grid, NTHREADS,
+                             st, m[0], m[1], m[2], m[3], dK, dV, p, r))
 }
 
 // The layout check: bf16 a, b [64][dh] and p [64][64] (row-major), fp32

@@ -64,11 +64,16 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
 
-// `x`, hidden from the compiler: the descriptors of a product chain derived
-// from it are then computed where the chain runs, not hoisted out of the
-// tile loop into registers that stay live across it.
+// `x`, hidden from the compiler: the descriptors of a product chain (or the
+// addresses of a copy) derived from it are then computed where the chain
+// runs, not hoisted out of the tile loop into registers that stay live
+// across it.
 __device__ __forceinline__ uint64_t opaque(uint64_t x) {
   asm volatile("" : "+l"(x));
+  return x;
+}
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
   return x;
 }
 

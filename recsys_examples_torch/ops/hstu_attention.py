@@ -8,16 +8,17 @@ takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv); with
 a relative attention bias `rab` the three kernels of K4 run instead (forward,
 dq + drab, dk/dv):
   - CUDA tensors launch the hand-written kernels (bf16, head dims
-    32/64/128/256) or raise: K1 from `csrc/hstu_attention_fwd.cu`, K2, K3
-    and K4's dq + drab from `csrc/hstu_attention_bwd.cu` (all wgmma, TMA,
-    warp-specialised), K4's forward and dk/dv from `csrc/hstu_attention.cu`;
+    32/64/128/256, all wgmma, TMA, warp-specialised) or raise: K1 and K4's
+    forward from `csrc/hstu_attention_fwd.cu`, K2, K3, K4's dq + drab and
+    K4's dk/dv from `csrc/hstu_attention_bwd.cu`;
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
 Each kernel wrapper counts its launches in `.launches`.
 
-`hstu_attn_varlen_quantized_calibrated` is the int8 forward (K5): int8 q, k,
-v with three per-tensor scales (`quantize_per_tensor`), forward only, no
-autograd, no bias. `hstu_attn_varlen(quantized=True)` quantizes its operands
-per tensor and takes that route.
+`hstu_attn_varlen_quantized_calibrated` is the int8 forward (K5, from
+`csrc/hstu_attention.cu`): int8 q, k, v with three per-tensor scales
+(`quantize_per_tensor`), forward only, no autograd, no bias.
+`hstu_attn_varlen(quantized=True)` quantizes its operands per tensor and
+takes that route.
 """
 from __future__ import annotations
 
@@ -55,15 +56,14 @@ class AttnOptions:
 
 
 # ------------------------------------------------------------ CUDA wrappers
-# entry: (library, tensor pointers, whether it takes T (the wgmma kernels'
-# TMA maps), whether it takes the bias arguments)
+# entry: (library, tensor pointers, whether it takes the bias arguments)
 _ENTRIES = {
-    "hstu_attn_fwd_launch": ("hstu_attention_fwd", 4, True, False),       # q, k, v, out
-    "hstu_attn_bwd_dq_launch": ("hstu_attention_bwd", 5, True, False),    # q, k, v, dO, dq
-    "hstu_attn_bwd_dkv_launch": ("hstu_attention_bwd", 6, True, False),   # ..., dk, dv
-    "hstu_attn_rab_bwd_dq_launch": ("hstu_attention_bwd", 5, True, True),
-    "hstu_attn_rab_fwd_launch": ("hstu_attention", 4, False, True),
-    "hstu_attn_rab_bwd_dkv_launch": ("hstu_attention", 6, False, True),
+    "hstu_attn_fwd_launch": ("hstu_attention_fwd", 4, False),       # q, k, v, out
+    "hstu_attn_bwd_dq_launch": ("hstu_attention_bwd", 5, False),    # q, k, v, dO, dq
+    "hstu_attn_bwd_dkv_launch": ("hstu_attention_bwd", 6, False),   # ..., dk, dv
+    "hstu_attn_rab_fwd_launch": ("hstu_attention_fwd", 4, True),
+    "hstu_attn_rab_bwd_dq_launch": ("hstu_attention_bwd", 5, True),
+    "hstu_attn_rab_bwd_dkv_launch": ("hstu_attention_bwd", 6, True),
 }
 # rab, drab, their batch and head strides, row stride, dtype and atomic flags
 _RAB_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
@@ -72,9 +72,11 @@ _RAB_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
 def _fn(entry: str):
     from recsys_examples_torch.utils import cuda_build
 
-    lib, n_ptr, tma, with_rab = _ENTRIES[entry]
+    lib, n_ptr, with_rab = _ENTRIES[entry]
     fn = getattr(cuda_build.load(lib), entry)
-    fn.argtypes = [ctypes.c_void_p] * (n_ptr + 3) + [ctypes.c_int] * (5 if tma else 4) \
+    # pointers, seq_offsets and the two counts; T (for the TMA maps), B, H,
+    # dh, max_seqlen; alpha, 1 / scaling; the four mask options
+    fn.argtypes = [ctypes.c_void_p] * (n_ptr + 3) + [ctypes.c_int] * 5 \
         + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + (_RAB_ARGS if with_rab else []) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -145,7 +147,7 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
     """Check the operands and launch `entry` on the current stream."""
     B, H, dh, dev = _check_operands(entry, tensors, torch.bfloat16, seq_offsets,
                                     num_contextuals, num_targets, opts)
-    _, _, tma, with_rab = _ENTRIES[entry]
+    _, _, with_rab = _ENTRIES[entry]
     rab_args = _rab_args(rab, drab, B, H, opts, dev) if with_rab else ()
     fn = _fn(entry)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -153,7 +155,7 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
         err = fn(
             *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
             seq_offsets.data_ptr(), ptr(num_contextuals), ptr(num_targets),
-            *((tensors[0].shape[0],) if tma else ()), B, H, dh, opts.max_seqlen,
+            tensors[0].shape[0], B, H, dh, opts.max_seqlen,
             float(opts.alpha), 1.0 / float(opts.scaling_seqlen), int(opts.causal),
             opts.target_group_size, opts.max_attn_len, opts.min_full_attn_seq_len,
             *rab_args, torch.cuda.current_stream(dev).cuda_stream,

@@ -8,7 +8,8 @@ with a relative attention bias, and its gradient), and of K5 (the int8
 forward, `hstu_mha_int8_reference`): the CPU path of
 `ops.hstu_attention.hstu_attn_varlen`, and what `chip_smoke.py` holds the
 kernels against on the card. Beside them stand the plain statements of
-the tile plans of K1, K2 and K3.
+the tile plans of K1, K2 and K3, and the tile walks of K4's forward and
+dk/dv (`rab_fwd_tile_walk`, `rab_dkv_tile_walk`).
 
 HSTU attention is SiLU attention, not softmax:
 
@@ -170,6 +171,143 @@ def dkv_query_tiles(k0: int, n: int, c: int, rows: int = BWD_TILE, *, causal: bo
         first = max(k0 // rows, n_ctx)
     return [(i if i < n_ctx else first + i - n_ctx) * rows
             for i in range(n_ctx + n_q - first)]
+
+
+# ------------------------------------------------------------ K4's tile walks
+# K4's forward and dk/dv as the RAB instances of K1's and K3's kernels walk
+# their tiles (csrc/hstu_attention_fwd.cu, csrc/hstu_attention_bwd.cu), in
+# plain PyTorch: the same tiles, the same bias cells, the mask form each tile
+# takes and the same bf16 rounding points, with fp32 sums (their order
+# aside). Slow, and meant for small shapes: the CPU tests hold them against
+# the JAX kernel, so a walk that reads the bias untransposed or drops alpha
+# from dk shows without a card.
+def _walk_seqs(seq_offsets, num_contextuals, num_targets):
+    """(b, off, n, c, t) of each sequence."""
+    so = [int(x) for x in seq_offsets]
+    for b in range(len(so) - 1):
+        c = 0 if num_contextuals is None else int(num_contextuals[b])
+        t = 0 if num_targets is None else int(num_targets[b])
+        yield b, so[b], so[b + 1] - so[b], c, t
+
+
+def _rows(x: torch.Tensor, r0: int) -> torch.Tensor:
+    """A tile as TMA loads it: packed rows [r0, r0 + BWD_TILE) of x [T, H,
+    d] as fp32 [H, BWD_TILE, d], zero past T (past its sequence's end, the
+    next sequence's rows)."""
+    t = x[r0:r0 + BWD_TILE].float()
+    t = F.pad(t, (0, 0, 0, 0, 0, BWD_TILE - t.shape[0]))
+    return t.transpose(0, 1)
+
+
+def _bias_cells(rab: torch.Tensor, b: int, n: int, r0: int, c0: int) -> torch.Tensor:
+    """fp32 [H|1, BWD_TILE, BWD_TILE]: rab[b|0, :, r0 + i, c0 + j], 0 where
+    a row or a column lies past the sequence's end n."""
+    cells = rab[min(b, rab.shape[0] - 1), :, r0:min(r0 + BWD_TILE, n),
+                c0:min(c0 + BWD_TILE, n)].float()
+    return F.pad(cells, (0, BWD_TILE - cells.shape[2], 0, BWD_TILE - cells.shape[1]))
+
+
+def _tile_mask(q0: int, k0: int, n: int, c: int, t: int, valid: torch.Tensor, *,
+               causal: bool, has_targets: bool, max_attn_len: int) -> torch.Tensor:
+    """[BWD_TILE, BWD_TILE] mask of query rows [q0, +64) x key columns [k0,
+    +64) in the form the kernels take: none on a certified interior tile,
+    the causal form where `causal_edge` holds, else the full mask
+    (`valid`, the sequence's, padded with False)."""
+    if tile_fully_valid(q0, k0, n, c, t, causal=causal, max_attn_len=max_attn_len):
+        return torch.ones(BWD_TILE, BWD_TILE)
+    if causal_edge(n, c, causal=causal, has_targets=has_targets, max_attn_len=max_attn_len):
+        rows = torch.arange(q0, q0 + BWD_TILE)[:, None]
+        cols = torch.arange(k0, k0 + BWD_TILE)[None, :]
+        return causal_edge_valid(rows, cols, n, c).float()
+    return valid[q0:q0 + BWD_TILE, k0:k0 + BWD_TILE].float()
+
+
+def _seq_valid(n, c, t, causal, has_ctx, has_tgt, max_attn_len, min_full, group):
+    """The sequence's dense mask, padded with False to whole tiles and one
+    more tile (edge tiles reach past n)."""
+    pad = (-(-max(n, 1) // BWD_TILE) + 1) * BWD_TILE
+    valid = torch.zeros(pad, pad, dtype=torch.bool)
+    if n:
+        one = lambda x: torch.tensor([x])
+        valid[:n, :n] = get_valid_attn_mask(
+            causal, n, one(n), num_targets=one(t) if has_tgt else None,
+            max_attn_len=max_attn_len, num_contextuals=one(c) if has_ctx else None,
+            min_full_attn_seq_len=min_full, target_group_size=group)[0]
+    return valid
+
+
+def rab_fwd_tile_walk(q, k, v, rab, seq_offsets, max_seq_len: int, alpha: float, *,
+                      causal: bool = True, num_targets=None, num_contextuals=None,
+                      max_attn_len: int = 0, target_group_size: int = 1,
+                      scaling_seqlen: int = -1, min_full_attn_seq_len: int = 0):
+    """K4's forward as `fwd_wgmma_kernel<D, true>` walks it: per 128-row CTA
+    of a sequence, per consumer of 64 query rows q0, the key tiles of
+    `fwd_tiles`; per tile x = alpha Q K^T + the bias cells (0 past n), the
+    tile's mask form, P = silu(x) / scaling * mask rounded to v's dtype, O
+    += P V in fp32; O's rows below n stored in v's dtype. Returns [T, H, V]
+    (rows no sequence owns zero)."""
+    scaling = max_seq_len if scaling_seqlen == -1 else scaling_seqlen
+    out = torch.zeros(v.shape, dtype=v.dtype)
+    plan = dict(causal=causal, has_context=num_contextuals is not None)
+    form = dict(causal=causal, has_targets=num_targets is not None, max_attn_len=max_attn_len)
+    for b, off, n, c, t in _walk_seqs(seq_offsets, num_contextuals, num_targets):
+        valid = _seq_valid(n, c, t, causal, plan["has_context"], form["has_targets"],
+                           max_attn_len, min_full_attn_seq_len, target_group_size)
+        for m0 in range(0, n, FWD_ROWS):
+            for q0 in (m0, m0 + BWD_TILE):
+                qt = _rows(q, off + q0)
+                o = torch.zeros(v.shape[1], BWD_TILE, v.shape[2])
+                for i in range(fwd_tiles(q0, n, c, **plan)):
+                    k0 = i * BWD_TILE
+                    x = alpha * qt @ _rows(k, off + k0).transpose(1, 2) \
+                        + _bias_cells(rab, b, n, q0, k0)
+                    mask = _tile_mask(q0, k0, n, c, t, valid, **form)
+                    p = (F.silu(x) / scaling * mask).to(v.dtype).float()
+                    o += p @ _rows(v, off + k0)
+                rows = max(0, min(BWD_TILE, n - q0))
+                out[off + q0:off + q0 + rows] = o[:, :rows].transpose(0, 1).to(v.dtype)
+    return out
+
+
+def rab_dkv_tile_walk(q, k, v, dout, rab, seq_offsets, max_seq_len: int, alpha: float, *,
+                      causal: bool = True, num_targets=None, num_contextuals=None,
+                      max_attn_len: int = 0, target_group_size: int = 1,
+                      scaling_seqlen: int = -1, min_full_attn_seq_len: int = 0):
+    """K4's dk and dv as `dkv_wgmma_kernel<D, true>` walks them: per 64-row
+    key tile n0 of a sequence, the 64-row query tiles of `dkv_query_tiles`;
+    per tile the transposed blocks (rows keys, columns queries) x^T = alpha
+    K Q^T + rab[query][key] (0 past n), the tile's mask form, P^T =
+    silu(x) / scaling * mask and dS^T = (dO V^T)^T * dsilu(x) * mask *
+    alpha / scaling, each rounded to dO's and q's dtype; dv += P^T dO and dk
+    += dS^T Q in fp32; rows below n stored in k's and v's dtype. Returns
+    (dk, dv) [T, H, D] (rows no sequence owns zero)."""
+    scaling = max_seq_len if scaling_seqlen == -1 else scaling_seqlen
+    dout = dout.to(v.dtype)
+    dk, dv = torch.zeros(k.shape, dtype=k.dtype), torch.zeros(v.shape, dtype=v.dtype)
+    plan = dict(causal=causal, has_context=num_contextuals is not None)
+    form = dict(causal=causal, has_targets=num_targets is not None, max_attn_len=max_attn_len)
+    for b, off, n, c, t in _walk_seqs(seq_offsets, num_contextuals, num_targets):
+        valid = _seq_valid(n, c, t, causal, plan["has_context"], form["has_targets"],
+                           max_attn_len, min_full_attn_seq_len, target_group_size)
+        for n0 in range(0, n, BWD_TILE):
+            kt, vt = _rows(k, off + n0), _rows(v, off + n0)
+            dka = torch.zeros(k.shape[1], BWD_TILE, k.shape[2])
+            dva = torch.zeros(v.shape[1], BWD_TILE, v.shape[2])
+            for q0 in dkv_query_tiles(n0, n, c, **plan):
+                qt, ot = _rows(q, off + q0), _rows(dout, off + q0)
+                x = alpha * kt @ qt.transpose(1, 2) \
+                    + _bias_cells(rab, b, n, q0, n0).transpose(1, 2)
+                mask = _tile_mask(q0, n0, n, c, t, valid, **form).T
+                sg = torch.sigmoid(x)
+                pt = (x * sg / scaling * mask).to(dout.dtype).float()
+                g = sg * (1 + x * (1 - sg)) * mask * (alpha / scaling)
+                dst = (vt @ ot.transpose(1, 2) * g).to(q.dtype).float()
+                dva += pt @ ot
+                dka += dst @ qt
+            rows = min(BWD_TILE, n - n0)
+            dk[off + n0:off + n0 + rows] = dka[:, :rows].transpose(0, 1).to(k.dtype)
+            dv[off + n0:off + n0 + rows] = dva[:, :rows].transpose(0, 1).to(v.dtype)
+    return dk, dv
 
 
 def _padded(x: torch.Tensor, seq_offsets: torch.Tensor, N: int) -> torch.Tensor:

@@ -14,9 +14,15 @@ Phases (any failure exits non-zero):
              the wgmma libraries. (b) the wgmma descriptors, TMA panels
              and register-A fragments of K1 and K2/K3, one tile pair per head
              dim, against torch.matmul.
-  2. kernel  paged SiLU delta attention against its plain version in bf16 at
-             the serving shapes (H=4, dh=256, page 128, B=8, S in {128, 512},
-             ragged cache, with and without targets) and one small odd shape.
+  2. kernel  paged SiLU delta attention (K6: wgmma, keys split over a
+             cluster) against its plain version in bf16 at the serving shapes
+             (H=4, dh=256, page 128, B=8, S in {128, 512}, ragged cache, with
+             and without targets), the decode shapes (S 8, history 3968, B 1
+             and 8), unset pages mid-history beside an empty cache and caches
+             ending inside a 64-key chunk, pages of 16 and 32 rows (head dims
+             64, 128), one small odd shape and the fp32 scalar kernel; every
+             case with padded rows exactly zero and two launches equal bit for
+             bit, its plan, and event and profiler (device) times.
   3. main    HSTUConfig() defaults (8 layers, hidden 1024, 4 x 256, bf16,
              head (512, 1)), a 65,536-slot x 1024 item table, 8 users with
              2048 history tokens and 128 candidates: a cold pass feeding the
@@ -108,7 +114,10 @@ Phases (any failure exits non-zero):
  13. quant   K6-int8 against its plain version at
              benchmarks/benchmark_paged_kv.py's points (H 4 x 256, page 128,
              8 new tokens, history 1024 and 3968, batch 1 and 8, with and
-             without targets) beside the bf16 kernel on the same pages; K5
+             without targets) beside the bf16 kernel on the same pages, then
+             pages of 16 and 32 rows with unset pages, an empty cache, the
+             two-consumer instance and scales that do not ride TMA (H 2),
+             with phase 2's padded-row and repeat checks; K5
              against its plain version at phase 5's lengths and mask families
              and at the full-width training shape, its error against the
              bf16 forward, and its time beside K1's.
@@ -157,30 +166,72 @@ def median_time_ms(fn, iters, reps=3):
     return statistics.median(cuda_time_ms(fn, iters) for _ in range(reps))
 
 
+def device_ms(fn, pattern, iters=20):
+    """Mean device time of one launch of the kernels whose profiler names
+    match `pattern`, over `iters` calls of fn after a warm-up (torch.profiler;
+    the mean over the launches it recorded): the kernel's own time, also
+    where the host's launch rate bounds an event timing (a wrapper call
+    costs the host 30-60 us)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and re.search(pattern, e.key)]
+    launches = sum(e.count for e in hits)
+    if not launches:   # the profiler recorded none of them: no reading
+        return float("nan")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / launches
+
+
+PAGED_KERNELS = r"paged_wgmma_kernel|scalar::kernel"
+
+
 def within(err, ref_scale):
     """The repo's kernel pass rule (tools/pallas_parity.py): err below
     2e-2 * max|ref| + 1e-3."""
     return err < 2e-2 * ref_scale + 1e-3
 
 
+def demangle(sym):
+    """`ns::name<args>` of a mangled kernel symbol, its template arguments
+    written as in C++ (the anonymous namespace dropped):
+    `..N6scalar6kernelILi128EE..` reads `scalar::kernel<128>`,
+    `..15dq_wgmma_kernelILi256ELb1EE..` `dq_wgmma_kernel<256, true>`."""
+    import re
+
+    if not sym.startswith("_ZN"):
+        return sym
+    rest, names = sym[3:], []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    names = [n for n in names if not n.startswith("_GLOBAL__N")]
+    t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if not t or not names:
+        return "::".join(names) or sym
+    args = [v if k == "i" else ("true" if v == "1" else "false")
+            for k, v in re.findall(r"L([ib])(\d+)", t.group(1))]
+    return "::".join(names) + f"<{', '.join(args)}>"
+
+
 def ptxas_entries(report):
     """(kernel, registers, bytes spilled) of each entry in `-Xptxas -v`'s
-    report; a template instance `..N2tc9kernel_i8ILi128EE..` reads
-    `tc::kernel_i8<128>`, `..9dq_kernelILi256ELb1EE..` reads
-    `dq_kernel<256, rab>`."""
+    report, the kernel as `demangle` names it."""
     import re
 
     out, entry, spill = [], None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = m.group(1)
-            t = re.search(r"(?:N\d+([a-z]+))?\d+([a-z_][a-z_0-9]*)ILi(\d+)E(?:Lb([01])E)?",
-                          entry)
-            if t:
-                ns, name, dh, rab = t.groups()
-                entry = ((f"{ns}::" if ns else "") + f"{name}<{dh}"
-                         + (", rab>" if rab == "1" else ">"))
+            entry = demangle(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
@@ -195,14 +246,17 @@ def ptxas_entries(report):
 # for sm_90a by CUDA 12.8's nvcc (this script's own report); none of them
 # may spill. hstu_attention holds the int8 forward (K5) alone. K1 and K4's
 # forward (hstu_attention_fwd), K2, K3 and K4's dq and dk/dv
-# (hstu_attention_bwd) launch 384 threads for one CTA per SM, so ptxas
-# holds them to 168 at entry; setmaxnreg then moves the producer's
-# registers to the two consumer warpgroups (240 each in the forward, 232 in
-# the backward).
+# (hstu_attention_bwd) and K6's bf16 and int8 instances
+# (paged_hstu_attention) launch up to 384 threads for one CTA per SM, so
+# ptxas holds them to 168 at entry; setmaxnreg then moves the producer's
+# registers to the consumer warpgroups (240 each in the forward, 232 in the
+# backward and in K6). K6's fp32-page scalar kernel keeps its own ceiling
+# (ENTRY_CEILING).
 REGISTER_CEILING = {"hstu_attention": 242, "hstu_attention_fwd": 168,
-                    "hstu_attention_bwd": 168, "paged_hstu_attention": 128,
+                    "hstu_attention_bwd": 168, "paged_hstu_attention": 168,
                     "beam_decode_attention": 148}
-WGMMA_LIBS = ("hstu_attention_fwd", "hstu_attention_bwd")
+ENTRY_CEILING = {"scalar::kernel": 128}
+WGMMA_LIBS = ("hstu_attention_fwd", "hstu_attention_bwd", "paged_hstu_attention")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -223,7 +277,9 @@ def phase_build():
         for entry, regs, spill in ptxas_entries(i["ptxas"]):
             log(f"  ptxas {entry}: {regs} registers, {spill} bytes spilled")
             # the layout checks of phase 1b run 128 or 256 threads: no ceiling
-            over = regs > REGISTER_CEILING[name] and "tile_check" not in entry
+            ceiling = next((c for k, c in ENTRY_CEILING.items() if k in entry),
+                           REGISTER_CEILING[name])
+            over = regs > ceiling and "tile_check" not in entry
             if over or spill:
                 raise SystemExit(f"phase1: {entry} grew to {regs} registers, {spill} spilled")
 
@@ -274,19 +330,31 @@ def phase_tile_check():
 
 # ---------------------------------------------------------------- phase 2
 def attention_case(gen, B, S, H, dh, pg, maxp, cached, new_lens, targets,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, unset=()):
+    """Random operands of the paged attention; `unset`: (user, page slot)
+    pairs whose page id is -1."""
     dev = "cuda"
     P = B * maxp + 4
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(P, generator=gen, device=dev)[: B * maxp]
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    page_table = perm.reshape(B, maxp).to(torch.int32).contiguous()
+    for b, j in unset:
+        page_table[b, j] = -1
     return dict(
         q=r(B, S, H, dh), k_pages=r(P, pg, H, dh), v_pages=r(P, pg, H, dh),
-        page_table=perm.reshape(B, maxp).to(torch.int32).contiguous(),
-        cached_len=i32(cached), new_k=r(B, S, H, dh), new_v=r(B, S, H, dh),
-        new_lens=i32(new_lens),
+        page_table=page_table, cached_len=i32(cached), new_k=r(B, S, H, dh),
+        new_v=r(B, S, H, dh), new_lens=i32(new_lens),
         num_targets=None if targets is None else i32(targets),
     )
+
+
+def cached_rows_read(c):
+    """Cached positions that lie on a set page: the page rows a call reads."""
+    pg, maxp = c["k_pages"].shape[1], c["page_table"].shape[1]
+    pos = torch.arange(maxp * pg, device=c["page_table"].device)
+    on_set = (c["page_table"] >= 0).repeat_interleave(pg, dim=1)
+    return int((on_set & (pos[None] < c["cached_len"][:, None])).sum())
 
 
 def attention_work(c):
@@ -305,10 +373,22 @@ def attention_work(c):
     esz = c["q"].element_size()
     tok = H * dh * esz
     nbytes = (4 * B * S * tok                     # q, new_k, new_v, out
-              + 2 * int(cached.sum()) * tok        # cached K and V rows read
+              + 2 * cached_rows_read(c) * tok      # cached K and V rows read
               + c["page_table"].numel() * 4 + 3 * B * 4)
     flops = 4 * pairs * H * dh
     return nbytes, flops
+
+
+def paged_plan(attn, c):
+    """The wgmma instances' plan for this case, as the wrapper launches it."""
+    return attn.paged_launch_plan(c["q"], c["k_pages"], c["page_table"])
+
+
+def padded_rows_zero(got, new_lens):
+    """Rows i >= new_len of every user are exact zeros."""
+    S = got.shape[1]
+    pad = torch.arange(S, device=got.device)[None, :] >= new_lens[:, None]
+    return not bool(got[pad].any())
 
 
 def phase_kernel(attn):
@@ -316,25 +396,56 @@ def phase_kernel(attn):
     H, dh, pg, B = 4, 256, 128, 8
     maxp = 19                                   # as the serving cache below
     full = maxp * pg
+    hist = 3968                                 # phase 13's longest history
+    # what the launch plan reads: clusters of 1-16 CTAs the card holds at once
+    dev = torch.cuda.current_device()
+    for int8 in (False, True):
+        for nc in (1, 2):
+            caps = {s: attn.paged_cluster_capacity(dev, int8, dh, nc, H, s)
+                    for s in range(1, attn.PAGED_MAX_SPLITS + 1)}
+            log(f"phase2 cluster capacity int8={int(int8)} consumers={nc} dh={dh} H={H}: "
+                f"{caps}")
+            if caps[1] < 1:
+                raise SystemExit("phase2: the card holds no CTA of the paged kernel")
     cases = {
         # the main path's warm call: 2048 cached, 128 candidate targets
-        "serve_warm": (128, [2048] * B, [128] * B, [128] * B),
+        "serve_warm": (B, 128, [2048] * B, [128] * B, [128] * B),
         # a 512-token prefill chunk after 1536 cached tokens
-        "prefill_512": (512, [1536] * B, [512] * B, None),
-        "ragged_128": (128, [0, 1000, full, 2048, 127, 129, 1, 640],
+        "prefill_512": (B, 512, [1536] * B, [512] * B, None),
+        "ragged_128": (B, 128, [0, 1000, full, 2048, 127, 129, 1, 640],
                        [128, 100, 128, 1, 77, 128, 128, 5], None),
-        "ragged_128_tgt": (128, [0, 1000, full, 2048, 127, 129, 1, 640],
+        "ragged_128_tgt": (B, 128, [0, 1000, full, 2048, 127, 129, 1, 640],
                            [128, 100, 128, 1, 77, 128, 128, 5],
                            [16, 100, 0, 1, 30, 128, 2, 5]),
-        "ragged_512_tgt": (512, [0, 1000, full - 300, 2048, 127, 129, 1, full],
+        "ragged_512_tgt": (B, 512, [0, 1000, full - 300, 2048, 127, 129, 1, full],
                            [512, 300, 512, 1, 77, 511, 256, 5],
                            [128, 0, 64, 1, 7, 128, 3, 5]),
+        # phase 13's decode shapes in bf16: one consumer, 4 and 8 splits
+        "decode_b8": (B, 8, [hist] * B, [8] * B, None),
+        "decode_b1": (1, 8, [hist], [8], None),
     }
     results = {}
-    for name, (S, cached, new, tgt) in cases.items():
+    for name, (b, S, cached, new, tgt) in cases.items():
+        mp = maxp if max(cached) <= full else -(-hist // pg)
         results[name] = check_case(
-            attn, name, attention_case(gen, B, S, H, dh, pg, maxp, cached, new, tgt),
-            scaling=full)
+            attn, name, attention_case(gen, b, S, H, dh, pg, mp, cached, new, tgt),
+            scaling=mp * pg)
+    # unset pages mid-history, a user with nothing cached beside full ones,
+    # caches that end inside a 64-key chunk
+    holes = attention_case(gen, B, 128, H, dh, pg, maxp,
+                           [2048, 0, 2000, 2048, 1500, 77, 2048, 2047],
+                           [128, 128, 100, 5, 128, 64, 1, 128],
+                           [128, 0, 50, 5, 0, 64, 1, 17],
+                           unset=[(0, 5), (2, 3), (3, 15), (7, 0)])
+    results["holes_128"] = check_case(attn, "holes_128", holes, scaling=full)
+    # pages of 16 and 32 rows (64 / pg boxes a chunk), head dims 64 and 128,
+    # the two-consumer instance with a part-filled second consumer (S 72)
+    pg16 = attention_case(gen, 4, 128, 8, 64, 16, 130, [2048, 0, 1000, 333],
+                          [128, 128, 77, 128], None, unset=[(0, 40), (3, 2)])
+    results["pg16_dh64"] = check_case(attn, "pg16_dh64", pg16, scaling=2080)
+    pg32 = attention_case(gen, 4, 72, 2, 128, 32, 40, [1280, 0, 700, 323], [72, 72, 5, 64],
+                          [8, 0, 5, 0], unset=[(0, 7), (2, 21)])
+    results["pg32_dh128"] = check_case(attn, "pg32_dh128", pg32, scaling=1280)
     # one small odd shape: dh 32, 2 heads, page 16, odd S
     odd = attention_case(gen, 3, 40, 2, 32, 16, 5, [0, 37, 80], [40, 13, 39],
                          [3, 0, 39])
@@ -347,31 +458,42 @@ def phase_kernel(attn):
 
 
 def check_case(attn, name, c, scaling):
+    """The kernel against its plain version (2e-2 max|ref| + 1e-3), padded
+    rows exactly zero, two launches equal bit for bit; kernel and plain ms
+    (medians of three readings) and the bound."""
     dh = c["q"].shape[-1]
     args = [c[k] for k in ("q", "k_pages", "v_pages", "page_table", "cached_len",
                            "new_k", "new_v", "new_lens", "num_targets")]
     alpha = 1.0 / dh ** 0.5
     got = attn.paged_hstu_delta_attention(*args, alpha, scaling)
+    again = attn.paged_hstu_delta_attention(*args, alpha, scaling)
     torch.cuda.synchronize()
     want = attn.paged_hstu_delta_attention_ref(*args, alpha, scaling)
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    ok = within(err, scale) and torch.isfinite(got).all().item()
-    kernel_ms = cuda_time_ms(
+    same, zeros = torch.equal(got, again), padded_rows_zero(got, c["new_lens"])
+    ok = within(err, scale) and torch.isfinite(got).all().item() and same and zeros
+    kernel_ms = median_time_ms(
         lambda: attn.paged_hstu_delta_attention(*args, alpha, scaling), 20)
-    plain_ms = cuda_time_ms(
+    dev_ms = device_ms(lambda: attn.paged_hstu_delta_attention(*args, alpha, scaling),
+                       PAGED_KERNELS)
+    plain_ms = median_time_ms(
         lambda: attn.paged_hstu_delta_attention_ref(*args, alpha, scaling), 5)
     nbytes, flops = attention_work(c)
     peak = BF16_FLOPS if c["q"].dtype == torch.bfloat16 else FP32_FLOPS
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak else "operations"
-    log(f"phase2 {name}: shape={tuple(c['q'].shape)} max_abs_err={err:.3e} "
-        f"tol={2e-2 * scale + 1e-3:.3e} (2e-2*max|ref|+1e-3) kernel_ms={kernel_ms:.4f} "
+    bound_ms, bound_by = bound_of(nbytes, flops, peak)
+    plan = paged_plan(attn, c) if c["q"].dtype == torch.bfloat16 else None
+    log(f"phase2 {name}: shape={tuple(c['q'].shape)} pg={c['k_pages'].shape[1]} "
+        + (f"plan=(splits {plan.splits}, consumers {plan.consumers}, grid {plan.grid}) "
+           if plan else "")
+        + f"max_abs_err={err:.3e} tol={2e-2 * scale + 1e-3:.3e} (2e-2*max|ref|+1e-3) "
+        f"bitwise_repeat={same} padded_rows_zero={zeros} kernel_ms={kernel_ms:.4f} "
+        f"device_ms={dev_ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     if not ok:
         raise SystemExit(f"phase2 {name}: kernel disagrees with its plain version")
-    return dict(err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+    return dict(err=err, kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1841,8 +1963,12 @@ def phase_sid_serve():
 
 # ---------------------------------------------------------------- phase 13
 def phase_quant_paged(attn):
-    """K6-int8 at benchmark_paged_kv.py's points. Returns the result of the
-    largest point (history 3968, batch 8) and the launches of the drive."""
+    """K6-int8 at benchmark_paged_kv.py's points, beside the bf16 kernel on the
+    same pages, then at the edges: pages of 16 and 32 rows, unset pages mid-
+    history, a user with nothing cached, caches that end inside a chunk, the
+    two-consumer instance, heads whose scales do not ride TMA (H 2). Every
+    case: padded rows exactly zero, two launches equal bit for bit. Returns
+    the results and the launches of the drive over the eight points."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     H, dh, pg, S = 4, 256, 128, 8
     points = [(hist, B, tgt) for hist in (1024, 3968) for B in (1, 8) for tgt in (False, True)]
@@ -1851,19 +1977,47 @@ def phase_quant_paged(attn):
         maxp = (hist + pg - 1) // pg
         c = attention_case(gen, B, S, H, dh, pg, maxp, [hist] * B, [S] * B,
                            [S // 2] * B if tgt else None)
-        c["int8"] = attn.quantize_kv_pages(c["k_pages"], c["v_pages"])
         c["scaling"] = float(hist + S)
         cases[(hist, B, tgt)] = c
+    edges = {
+        "pg32_holes": attention_case(gen, 4, S, H, dh, 32, 124, [3968, 0, 1000, 2047],
+                                     [8, 8, 3, 8], [4, 0, 0, 8],
+                                     unset=[(0, 50), (2, 3), (3, 0)]),
+        "pg16_s128_holes": attention_case(gen, 4, 128, H, dh, 16, 130, [2048, 0, 1000, 1543],
+                                          [128, 128, 77, 100], None, unset=[(0, 40), (3, 9)]),
+        "odd_dh64": attention_case(gen, 4, 40, 2, 64, 16, 6, [0, 37, 80, 96],
+                                   [40, 13, 39, 33], [3, 0, 39, 7], unset=[(1, 1)]),
+    }
+    for c in edges.values():
+        c["scaling"] = 136.0
+    for c in (*cases.values(), *edges.values()):
+        c["int8"] = attn.quantize_kv_pages(c["k_pages"], c["v_pages"])
 
     def call(c, quantized, fn=None):
         k8, v8, ks, vs = c["int8"]
+        alpha = c["q"].shape[-1] ** -0.5
         args = [c[k] for k in ("q", "k_pages", "v_pages", "page_table", "cached_len",
                                "new_k", "new_v", "new_lens", "num_targets")]
         if quantized:
             args[1], args[2] = k8, v8
-            return attn.paged_hstu_delta_attention(*args, dh ** -0.5, c["scaling"],
+            return attn.paged_hstu_delta_attention(*args, alpha, c["scaling"],
                                                    k_scales=ks, v_scales=vs)
-        return (fn or attn.paged_hstu_delta_attention)(*args, dh ** -0.5, c["scaling"])
+        return (fn or attn.paged_hstu_delta_attention)(*args, alpha, c["scaling"])
+
+    def check(tag, c, got):
+        """Against the plain version on the dequantized pages; padded rows,
+        a second launch."""
+        k8, v8, ks, vs = c["int8"]
+        deq = dict(c, k_pages=k8.float() * ks[..., None], v_pages=v8.float() * vs[..., None])
+        want = call(deq, False, attn.paged_hstu_delta_attention_ref)
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        same, zeros = torch.equal(got, call(c, True)), padded_rows_zero(got, c["new_lens"])
+        if not (within(err, ref) and bool(torch.isfinite(got).all()) and same and zeros):
+            raise SystemExit(f"phase13: the int8 paged kernel disagrees at {tag}: "
+                             f"err {err:.3e} of max {ref:.3e}, repeat equal {same}, "
+                             f"padded rows zero {zeros}")
+        return deq, err, ref
 
     # the drive: every point once through the public entry
     attn.paged_hstu_delta_attention_int8.launches = 0
@@ -1875,50 +2029,37 @@ def phase_quant_paged(attn):
     res = {}
     for key, c in cases.items():
         hist, B, tgt = key
-        k8, v8, ks, vs = c["int8"]
-        deq = dict(c, k_pages=k8.float() * ks[..., None], v_pages=v8.float() * vs[..., None])
-        want = call(deq, False, attn.paged_hstu_delta_attention_ref)
-        got = outs[key]
-        err = (got.float() - want.float()).abs().max().item()
-        ref = want.float().abs().max().item()
+        deq, err, ref = check(key, c, outs[key])
         bf16_out = call(c, False)
-        err_bf16 = (got.float() - bf16_out.float()).abs().max().item()
-        t = [cuda_time_ms(lambda: call(c, False), 20), cuda_time_ms(lambda: call(c, True), 20),
-             cuda_time_ms(lambda: call(c, True), 20), cuda_time_ms(lambda: call(c, False), 20)]
+        err_bf16 = (outs[key].float() - bf16_out.float()).abs().max().item()
+        t = [median_time_ms(lambda: call(c, False), 20), median_time_ms(lambda: call(c, True), 20),
+             median_time_ms(lambda: call(c, True), 20), median_time_ms(lambda: call(c, False), 20)]
         ms, ms_bf16 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        plain_ms = cuda_time_ms(lambda: call(deq, False, attn.paged_hstu_delta_attention_ref), 3)
+        dev = [device_ms(lambda: call(c, q), PAGED_KERNELS) for q in (True, False)]
+        plain_ms = median_time_ms(lambda: call(deq, False, attn.paged_hstu_delta_attention_ref), 3)
         nbytes, flops = attention_work(c)
-        tok = H * dh
+        rows = cached_rows_read(c)
         # int8 pages: one byte an element and two fp32 scales a (token, head)
-        nbytes += -2 * hist * B * tok * 2 + 2 * hist * B * (tok + 4 * H)
+        nbytes += -2 * rows * H * dh * 2 + 2 * rows * (H * dh + 4 * H)
         bound_ms, bound_by = bound_of(nbytes, flops)
-        log(f"phase13 paged_int8 hist={hist} B={B} targets={tgt}: max_abs_err={err:.3e} "
+        plan = paged_plan(attn, c)
+        log(f"phase13 paged_int8 hist={hist} B={B} targets={tgt}: plan=(splits {plan.splits}, "
+            f"consumers {plan.consumers}) max_abs_err={err:.3e} "
             f"tol={2e-2 * ref + 1e-3:.3e} (2e-2*max|ref|+1e-3) against the bf16 kernel on the "
             f"unquantized pages {err_bf16:.3e}; kernel_ms={ms:.4f} bf16_kernel_ms={ms_bf16:.4f} "
-            f"(in turns) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
+            f"(in turns) device_ms={dev[0]:.4f} bf16_device_ms={dev[1]:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        if not (within(err, ref) and bool(torch.isfinite(got).all())):
-            raise SystemExit(f"phase13: the int8 paged kernel disagrees at {key}")
         res[key] = dict(err=err, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, bf16_kernel_ms=ms_bf16)
-    # ragged cache, padded rows, targets, a -1 page and tail past a chunk edge
-    c = attention_case(gen, 4, 40, 2, 64, 16, 6, [0, 37, 80, 96], [40, 13, 39, 33],
-                       [3, 0, 39, 7])
-    c["page_table"][1, 1] = -1
-    c["int8"] = attn.quantize_kv_pages(c["k_pages"], c["v_pages"])
-    k8, v8, ks, vs = c["int8"]
-    args = [c[k] for k in ("q", "k_pages", "v_pages", "page_table", "cached_len", "new_k",
-                           "new_v", "new_lens", "num_targets")]
-    got = attn.paged_hstu_delta_attention(*args[:1], k8, v8, *args[3:], 0.125, 136.0,
-                                          k_scales=ks, v_scales=vs)
-    want = attn.paged_hstu_delta_attention_ref(
-        args[0], k8.float() * ks[..., None], v8.float() * vs[..., None], *args[3:], 0.125, 136.0)
-    err = (got.float() - want.float()).abs().max().item()
-    ref = want.float().abs().max().item()
-    log(f"phase13 paged_int8 odd_dh64: max_abs_err={err:.3e} tol={2e-2 * ref + 1e-3:.3e}")
-    if not within(err, ref) or bool(got[1, 13:].any()):
-        raise SystemExit("phase13: the int8 paged kernel disagrees at the odd shape")
-    res["odd"] = dict(err=err)
+                        bound_by=bound_by, bf16_kernel_ms=ms_bf16, device_ms=dev[0],
+                        bf16_device_ms=dev[1])
+    for tag, c in edges.items():
+        _, err, ref = check(tag, c, call(c, True))
+        plan = paged_plan(attn, c)
+        log(f"phase13 paged_int8 {tag}: shape={tuple(c['q'].shape)} pg={c['k_pages'].shape[1]} "
+            f"plan=(splits {plan.splits}, consumers {plan.consumers}) max_abs_err={err:.3e} "
+            f"tol={2e-2 * ref + 1e-3:.3e}")
+        res[tag] = dict(err=err)
     return res, launches
 
 
@@ -2055,7 +2196,7 @@ def main():
         "route": "cuda",
         "source": "recsys_examples_torch/csrc/paged_hstu_attention.cu",
         "replaces": "recsys_examples_tpu/ops/pallas/paged_hstu_attention.py:270",
-        "launches": res["serve"]["launches"],
+        "launches": res["serve"]["launches"],     # phase 3's main path (not phase 4's)
         "max_abs_err": max(r["err"] for r in res["paged"].values()),
         "ms": warm["kernel_ms"],
         "plain_ms": warm["plain_ms"],

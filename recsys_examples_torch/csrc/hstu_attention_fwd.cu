@@ -91,61 +91,12 @@ constexpr int NTHREADS = 128 * (NC + 1);  // + the producer's warpgroup
 constexpr int STAGES = 2;                 // of the K ring and of the V ring
 constexpr int TURN = 1;                   // named barrier TURN + w: consumer w's turn
 
-template <int DH>
-struct Out {
-  static constexpr int CH = DH < 128 ? DH : 128;   // output columns of one P V chain
-  static constexpr int NCH = DH / CH;              // chains per k-slice
-};
-
-// fast reciprocal: two ulps at most, far below the bf16 rounding of P
-__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
-
-// A[64][DH] . B[64][DH]^T ([64 x 64]) as two sums, the even 16-wide
-// k-slices into `even` and the odd ones into `odd`, both tiles read K-major:
-// the score is even + odd, as the mma.sync forward before it summed it (a
-// single chain over all slices rounds otherwise, enough to move
-// chip_smoke.py's phase 6a loss past its limit). The descriptors are the
-// tiles' own plus a constant each (`desc_at`), made where the chain runs
-// (`opaque`): hoisted out of the tile loop, Q's 16 would pin 32 registers.
-template <int DH>
-__device__ __forceinline__ void score_chain(float (&even)[32], float (&odd)[32],
-                                            const unsigned char* a, const unsigned char* b) {
-  using L = Tile<DH>;
-  constexpr int SL = L::PW / 16;   // 16-wide k-slices per panel
-  const uint64_t da = sm90::opaque(sm90::smem_desc(a, 16, 8 * L::PB, L::SW));
-  const uint64_t db = sm90::opaque(sm90::smem_desc(b, 16, 8 * L::PB, L::SW));
-#pragma unroll
-  for (int s = 0; s < DH / 16; ++s) {
-    const int off = (s / SL) * L::PANEL + (s % SL) * 32;
-    sm90::Wgmma<64, 0>::run(s % 2 ? odd : even, sm90::desc_at(da, off), sm90::desc_at(db, off),
-                            s > 1);
-  }
-}
-
-// o[64 x DH] += P[64 x 64] . X[64][DH]: P as A fragments (slice kk in
-// pa[4 kk .. 4 kk + 3]), X a tile read MN-major.
-template <int DH>
-__device__ __forceinline__ void pv_chain(float (&o)[Out<DH>::NCH][Out<DH>::CH / 2],
-                                         const uint32_t (&pa)[16], const unsigned char* x) {
-  using L = Tile<DH>;
-  using O = Out<DH>;
-  const uint64_t dx = sm90::opaque(sm90::smem_desc(x, L::PANEL, 8 * L::PB, L::SW));
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < O::NCH; ++j) {
-      const int c0 = j * O::CH;
-      const int off = (c0 / L::PW) * L::PANEL + (c0 % L::PW) * 2 + kk * 16 * L::PB;
-      sm90::WgmmaRS<O::CH, 1>::run(o[j], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                                   pa[4 * kk + 3], sm90::desc_at(dx, off), 1);
-    }
-}
-
-template <int DH>
-__device__ __forceinline__ void fence_out(float (&o)[Out<DH>::NCH][Out<DH>::CH / 2]) {
-#pragma unroll
-  for (int j = 0; j < Out<DH>::NCH; ++j) sm90::fence_regs(o[j]);
-}
+// The product chains K1 shares with K6 (sm90_wgmma.cuh).
+using sm90::Out;
+using sm90::fence_out;
+using sm90::pv_chain;
+using sm90::score_chain;
+using sm90::sigmoid;
 
 // ------------------------------------------------------------ K4: the bias
 constexpr int SLOT = 32 * 128 * 4;   // bytes of a consumer's bias slots: 32 words a thread
@@ -231,13 +182,6 @@ __device__ __forceinline__ void fetch_bias(const Rab& rab, uint32_t slot, int n,
   sm90::cp_async_commit();
 }
 
-__device__ __forceinline__ uint4 ld_shared4(uint32_t a) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
-  return v;
-}
-
 // ------------------------------------------------------------ elementwise
 // P = silu(x) / scaling * mask in place, x = alpha S (RAB: + the bias cells
 // of the thread's slot, landed), for query rows q0 + acc_row and key columns
@@ -248,7 +192,7 @@ __device__ __forceinline__ void silu_part(float (&sc)[32], const Params& p, cons
 #pragma unroll
   for (int i = 0; i < 32; i += 4) {
     uint4 w{};
-    if constexpr (RAB) w = ld_shared4(b.slot + slot_word(i, 0));
+    if constexpr (RAB) w = sm90::ld_shared4(b.slot + slot_word(i, 0));
     const uint32_t word[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {

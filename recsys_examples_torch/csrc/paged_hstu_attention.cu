@@ -1,18 +1,20 @@
-// Paged SiLU delta attention for KV-cached HSTU inference, for Hopper (sm_90a).
+// Paged SiLU delta attention for KV-cached HSTU inference, for Hopper (sm_90a):
+// K6 (bf16 pages) and K6-int8 (int8 pages), two instances of one wgmma
+// template, and the fp32-page scalar kernel.
 //
 // Replaces the TPU kernel recsys_examples_tpu/ops/pallas/paged_hstu_attention.py
-// `_kernel` (launched by `paged_hstu_delta_attention`). The new-token queries
-// of each user attend over [the user's cached pages ++ the new tokens' own
-// K/V]:
+// `_kernel` (:91, launched by `paged_hstu_delta_attention` :270, pallas_call
+// :362) and its `quantized` branches. The new-token queries of each user
+// attend over [the user's cached pages ++ the new tokens' own K/V]:
 //   out[b, i] = sum_col silu(alpha * q[b, i] . k[col]) / scaling * mask * v[col]
 // with the delta-q mask: valid(row, col) = (col == row) or
 // (min(row, hist_end) - min(col, hist_end) > 0), col < kv_len, i < new_len,
 // where row = cached + i, kv_len = cached + new_len and
 // hist_end = kv_len - num_targets (num_targets = 0 when absent). Padded query
-// rows (i >= new_len) come out as zero. Cached positions [0, cached) are read
-// from the pages named by page_table (a -1 page id is never read); positions
-// cached + t come from new_k/new_v[t], for every t < new_len, also past
-// maxp * page_size.
+// rows (i >= new_len) come out as exact zeros. Cached positions [0, cached)
+// are read from the pages named by page_table (a -1 page id is never read);
+// positions cached + t come from new_k/new_v[t], for every t < new_len, also
+// past maxp * page_size. P rounds to bf16 before P.V, sums are fp32.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s dense bf16): bytes at
 // the serving shape. With B = 8 users of 2048 cached tokens, S = 128
@@ -22,53 +24,551 @@
 // after 1536 cached tokens is compute-bound: 30.1 GFLOP (30.4 us) against
 // 83.9 MB (25.0 us). (chip_smoke.py computes both from the shapes.)
 //
-// Design. One CTA per (user, head, 64-row tile of new-token queries). The
-// CTA walks key positions [0, cached + tail) in chunks, each chunk's K/V rows
-// coming from the page pool (the page id read from page_table) or from the
-// new tokens, so every needed page byte is read once per query tile; only
-// ceil(cached / page_size) pages are visited, and only the tail columns the
-// tile's rows can see. P is rounded to the V dtype before P.V, as the TPU
-// kernel does, and sums are fp32.
-//   bf16 pages (the serving path): 8 warps on mma.sync m16n8k16 tensor-core
-//   tiles. Q stays in shared memory; K/V chunks of 32 positions stream
-//   through a two-stage cp.async ring, so the next chunk's loads overlap this
-//   chunk's math. Each warp computes a 16 x 16 block of S = Q K^T, applies
-//   the mask and silu in registers and writes P (bf16) to shared memory;
-//   then each warp accumulates 16 rows x DH/2 columns of O += P V. With one
-//   CTA per SM at small batch, latency is what limits: eight warps and two
-//   independent mma chains in Q K^T hide more of it than four warps did.
-//   fp32 pages: 256 threads of scalar fp32 FMA on the same chunk walk.
-//   int8 pages (the `quantized` branches of the TPU kernel; bf16 q and new
-//   tokens): pages [P, pg, H, dh] int8 with fp32 scales [P, pg, H] per
-//   (token, head). The ring carries the int8 rows (half the page bytes) and
-//   the chunk's two scale rows; each arrived chunk is widened to bf16 (exact)
-//   into one compute tile, and the tensor-core math of the bf16 kernel runs
-//   on it with sc = (q . k8) alpha ks and p = silu(sc) / scaling * mask * vs.
-//   The TPU kernel runs these two products in fp32; here p vs is rounded to
-//   bf16 before p . v8 (v8 itself is exact). Chunks never mix sources: the
-//   page positions [0, cached) are walked first, then the new tokens' tail
-//   (bf16, copied straight into the compute tile).
-// Not done yet: wgmma/TMA, and a split over pages to fill all 132 SMs when
-// users x heads x tiles is small (64 CTAs at the serving shape).
+// Design (bf16 and int8 pages). The plan is the plain statements of
+// recsys_examples_torch/ops/paged_hstu_attention.py, copied line by line:
+// `paged_split_plan` (on the host, from shapes only: no device value is
+// read), `paged_chunk_counts`, `paged_cta_chunks`, `paged_chunk_fully_valid`
+// and `paged_chunk_valid` (tests/test_torch_paged_plan.py holds them).
+//  - Split over keys, summed in a cluster. One CTA per (key split, head, user
+//    x query block of 64 or 128 rows); grid (splits, H, B * blocks), clusters
+//    of `splits` CTAs along x. `splits` is the largest count up to 16 whose
+//    clusters the card holds all at once (`paged_cluster_capacity`: an H100
+//    holds 39 clusters of 3 and 30 of 4, so the serving shape's 32 (user,
+//    head) pairs split 3 ways; a second wave costs more than the split
+//    saves). A
+//    block's key positions form 64-key chunks: page chunks over
+//    [0, min(cached, maxp * pg)), then the new tokens the block's rows can
+//    see; a chunk never mixes the two. CTA r takes an even share of them, in
+//    order. SiLU attention has no softmax normaliser, so the splits' partial
+//    outputs simply add: each CTA puts its fp32 O in its own shared memory
+//    (where the tiles were), and after a cluster barrier CTA r's consumers
+//    sum rows [r R / splits, (r + 1) R / splits) over the cluster's ranks in
+//    rank order, through distributed shared memory, round to bf16 and store
+//    them (zeros for rows i >= new_len); a second cluster barrier keeps every
+//    CTA's shared memory alive until all have read it. Deterministic, no
+//    workspace in device memory, no atomics.
+//  - Warp specialisation, as K1 (hstu_attention_fwd.cu). A producer warp
+//    loads the CTA's Q once by TMA and streams the chunks' K and V tiles
+//    through a full/empty mbarrier ring; one consumer warpgroup (S <= 64:
+//    decode) or two of 64 query rows each run S = Q K^T (one m64n64k16
+//    chain, K-major), the mask and SiLU in registers, and O += P V with P
+//    repacked as register A fragments (`acc_to_a`), V read MN-major. Every
+//    instance launches at most 384 threads (168 registers a thread at
+//    entry); setmaxnreg gives the consumers 216 (two), 232 (one) or 240
+//    (one, int8).
+//  - Paged TMA. One 2-D map over the layer's pool viewed as [P pg, H dh]
+//    (row stride 2 H dh bytes), one over new_k / new_v as [B S, H dh], both
+//    read in boxes of min(pg, 64) rows x one 64-column panel (128-byte
+//    swizzle; 32 columns, 64-byte swizzle, at dh 32). A chunk is one box per
+//    panel from one page (pg a multiple of 64) or 64 / pg boxes of whole
+//    pages (pg 8, 16, 32: whole 8-row swizzle atoms, so each lands where
+//    wgmma expects it); other page sizes are refused by the wrapper. An unset
+//    page (id -1, or past maxp) is loaded from row P pg, past the pool,
+//    which TMA fills with zeros: no stale shared memory reaches P V.
+//  - No mask work on certified chunks. A page chunk [c0, c0 + 64) with
+//    c0 + 64 <= min(cached, hist_end) and every page set is valid for every
+//    live row (col < hist_end, and row >= cached > col): it skips the mask.
+//    Other page chunks test their columns (below min(cached, hist_end),
+//    page set), new-token chunks the delta mask. Rows are never masked: the
+//    padded rows' sums are dropped at the store. Positions of a partial page
+//    chunk past `cached` are read from the pool and masked; like the plain
+//    version, which gathers whole pages, that assumes finite pool contents
+//    (the cache allocates its pool zeroed).
+//  - Int8 pages (the `quantized` branches; bf16 q and new tokens): pages
+//    [P, pg, H, dh] int8 with fp32 scales [P, pg, H] per (token, head). The
+//    producer warp fills a second ring with the int8 rows (half the page
+//    bytes, a map over the int8 pool without swizzle) and, in the
+//    two-consumer instance, the chunk's K and V scales (a TMA box of
+//    [rows, H] fp32 when 4 H is a multiple of 16); otherwise the wideners
+//    copy the scales by 4-byte cp.async. Widening warps (the producer
+//    warpgroup's three idle ones and, with one consumer, a second warpgroup
+//    of four: the widening is latency-bound) turn each arrived chunk into
+//    the swizzled bf16 tiles wgmma reads (two integer ops and one bf16x2
+//    subtraction a pair of values, exact) and arrive on the consumers' full
+//    barrier; they also feed the new-token chunks into the bf16 ring by TMA,
+//    so that ring keeps one producer. Scores take sc = (q . k8) alpha ks and
+//    probabilities p = silu(sc) / scaling * mask * vs, rounded to bf16
+//    before p . v8 (the TPU kernel runs that product in fp32).
+//  - Page ids are read from device memory where needed (cached), not kept
+//    in shared memory, so no page-table length is refused.
+// Shared memory (dh 256; 232,448 bytes a block at most; + 1 KB of alignment
+// slack and the barriers):
+//   bf16, two consumers: Q 64 KB + 2 stages of K + V (128 KB) = 192 KB;
+//   bf16, one consumer:  Q 32 KB + 3 stages (192 KB) = 224 KB;
+//   int8, two consumers: Q 64 KB + 1 bf16 stage (64 KB) + 2 int8 stages
+//     (64 KB) = 192 KB, + 2 KB of scales a stage at H 4;
+//   int8, one consumer:  Q 32 KB + 2 bf16 stages (128 KB) + 2 int8 stages
+//     (64 KB) = 224 KB, + 1 KB of scales: no room for TMA-fed scale stages.
+// The fp32 O of the cluster sum (R rows of dh + 4 words: 133 KB for 128
+// rows) reuses the tiles. Two bf16 stages let widening overlap the
+// products; the two-consumer int8 instance has room for one (PERF.md, section 6).
+//
+// fp32 pages (off the serving path, which runs bf16): `scalar::kernel`, 256
+// threads of scalar fp32 FMA per (user, head, 64-row query tile), walking
+// key positions in chunks of 32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using sm90::bf16;
 
 struct Args {
   const int* page_table;    // [B, maxp]
   const int* cached_len;    // [B]
   const int* new_lens;      // [B]
   const int* num_targets;   // [B] or null
+  const float* k_scales;    // int8 pages: [P, pg, H]
+  const float* v_scales;
   int S, H, pg, maxp;
+  int P;                    // pages in the pool
+  int qblocks;              // query blocks per user
+  int pg_shift;             // log2(pg) for pages of 8, 16 or 32 rows
+  int scale_tma;            // int8 pages: the scales ride TMA (Smem::TMA_SCALES, 4 H % 16 == 0)
   float alpha, inv_scaling;
 };
+
+// ------------------------------------------------ bf16 and int8 pages: wgmma
+namespace wg {
+
+using sm90::Tile;
+
+constexpr int CH = 64;                  // key positions per chunk
+constexpr int QR = sm90::TILE_ROWS;     // query rows per consumer warpgroup
+constexpr int OPAD = 4;                 // fp32 words of padding per row of O
+constexpr int CONSUMERS_DONE = 1;       // named barriers
+constexpr int WIDENED = 2;
+
+// The CTA's warpgroups: NC consumers, then the producer's (warp 0: TMA;
+// int8: warps 1-3 widen) and, for the one-consumer int8 instance, a second
+// warpgroup of wideners (widening is latency-bound: PERF.md, section 6).
+// setmaxnreg splits the 168 registers a thread holds at entry between the
+// consumers (O's DH / 2 sums, the score's 32, P's 16) and the others.
+template <int NC, bool I8>
+struct Roles {
+  static constexpr int EXTRA = I8 && NC == 1;                 // the second wideners' warpgroup
+  static constexpr int THREADS = 128 * (NC + 1 + EXTRA);
+  static constexpr int WIDEN = I8 ? 96 + 128 * EXTRA : 0;     // widening threads
+  static constexpr int CONSUMER = NC == 2 ? 216 : EXTRA ? 240 : 232;
+  static constexpr int PRODUCER = NC == 2 ? 72 : EXTRA ? 128 : 104;
+  static_assert(NC * 128 * CONSUMER + (THREADS - NC * 128) * PRODUCER <= 168 * THREADS, "");
+};
+
+// Shared memory after the barriers, from a 1024-byte boundary: Q's NC tiles,
+// ST bf16 stages of (K tile, V tile), (int8) RS stages of int8 K and V rows,
+// the bf16 stages' scales, then (TMA_SCALES) the int8 stages' scales. The
+// one-consumer int8 instance (decode) keeps two bf16 stages, so widening a
+// chunk overlaps the products of the one before, and its wideners copy the
+// scales straight into the bf16 stage: TMA-fed scale stages would not fit
+// beside them.
+template <int DH, int NC, bool I8>
+struct Smem {
+  using L = Tile<DH>;
+  static constexpr int ST = I8 ? (NC == 1 ? 2 : 1) : (NC == 1 ? 3 : 2);   // bf16 stages
+  static constexpr int RS = I8 ? 2 : 0;                                   // int8 stages
+  static constexpr bool TMA_SCALES = I8 && NC == 2;
+  static constexpr int RAW = CH * DH;                     // bytes of an int8 [64][DH] tile
+  static constexpr int KV = NC * L::BYTES;                // offsets
+  static constexpr int RW = KV + ST * 2 * L::BYTES;
+  static constexpr int CSC = RW + RS * 2 * RAW;
+  static constexpr int RSC = CSC + (I8 ? ST * 2 * CH * 4 : 0);
+  static constexpr int OBUF = NC * QR * (DH + OPAD) * 4;  // the cluster sum's fp32 O
+  static_assert(OBUF <= CSC, "O fits where the tiles were");
+  struct Bars {
+    sm90::Ring<ST> kv;
+    sm90::Ring<I8 ? RS : 1> raw;
+    uint64_t q_full;
+  };
+  static size_t bytes(int H) {
+    return sizeof(Bars) + 1024 + RSC + (TMA_SCALES ? (size_t)RS * 2 * CH * H * 4 : 0);
+  }
+};
+
+// The CTA's (user, head, query block) and its chunks: paged_chunk_counts and
+// paged_cta_chunks.
+struct Cta {
+  int b, h, m0, cached, live, hist_end, lim, n_page, c_begin, c_end;
+  __device__ Cta(const Args& a, int rows, uint32_t rank, int splits) {
+    b = blockIdx.z / a.qblocks;
+    m0 = (blockIdx.z % a.qblocks) * rows;
+    h = blockIdx.y;
+    cached = a.cached_len[b];
+    const int new_len = a.new_lens[b];
+    live = min(new_len, a.S);
+    hist_end = cached + new_len - (a.num_targets ? a.num_targets[b] : 0);
+    lim = min(cached, hist_end);
+    n_page = 0;
+    int n_tail = 0;
+    if (live > m0) {
+      n_page = (min(cached, a.maxp * a.pg) + CH - 1) / CH;
+      n_tail = (min(live, m0 + rows) + CH - 1) / CH;
+    }
+    const int n = n_page + n_tail;
+    c_begin = (int)rank * n / splits;
+    c_end = ((int)rank + 1) * n / splits;
+  }
+  __device__ static int page_id(const Args& a, const int* pt, int j) {
+    return j < a.maxp ? pt[j] : -1;
+  }
+  // paged_chunk_fully_valid
+  __device__ bool fully_valid(const Args& a, const int* pt, int c0) const {
+    if (c0 + CH > lim) return false;
+    for (int j = c0 / a.pg; j <= (c0 + CH - 1) / a.pg; ++j)
+      if (page_id(a, pt, j) < 0) return false;
+    return true;
+  }
+  // the pool row of position `pos`, or P pg (past the pool: TMA reads zeros)
+  __device__ int pool_row(const Args& a, const int* pt, int pos) const {
+    const int pid = page_id(a, pt, pos / a.pg);
+    return pid >= 0 ? pid * a.pg + pos % a.pg : a.P * a.pg;
+  }
+};
+
+// Byte offset of element (r, c), c a multiple of 8, in a [64][DH] bf16 tile of
+// TMA panels (sm90_wgmma.cuh's layout).
+template <int DH>
+__device__ __forceinline__ uint32_t tile_off(uint32_t r, uint32_t c) {
+  using L = Tile<DH>;
+  const uint32_t f = L::PB == 128 ? (r & 7) : ((r >> 1) & 3);
+  return (c / L::PW) * L::PANEL + r * L::PB + ((((c % L::PW) >> 3) ^ f) << 4);
+}
+
+// 16 int8 values (one 16-byte vector) -> 16 bf16 values, two a word in
+// order, without a conversion instruction: for each value x, A = 0x4300 |
+// (x & 127) reads 128 + (x & 127) and B = 0x4300 | (x & 128) reads 128 + 128 s
+// (s the sign bit), so A - B (one bf16x2 subtraction a pair) is x, exactly.
+__device__ __forceinline__ void widen16(uint32_t (&o)[8], uint4 raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t t = __byte_perm(w[i / 2], 0, i % 2 ? 0x4342 : 0x4140);   // bytes at 0 and 16
+    const uint32_t a = (t & 0x007F007Fu) | 0x43004300u, b = (t & 0x00800080u) | 0x43004300u;
+    asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(o[i]) : "r"(a), "r"(b));
+  }
+}
+
+enum Form { NONE, PAGE, TAIL };
+
+// P = silu(alpha S (SCALED: x the keys' scales)) / scaling (x the values'
+// scales) where chunk c's mask holds (paged_chunk_valid), for query rows
+// row0 + acc_row and chunk columns acc_col; 0 elsewhere. Accumulator
+// elements 4 g .. 4 g + 3 share the columns 8 g + 2 (t % 4) and + 1, whose
+// scales are read together; a compiler barrier after each group keeps them
+// from all being loaded at once beside O (the two-consumer int8 instance
+// would spill at dh 256).
+template <Form FORM, bool SCALED>
+__device__ __forceinline__ void silu_part(float (&sc)[32], const Args& a, const Cta& T,
+                                          const int* pt, int c, int row0, int t, const float* ks,
+                                          const float* vs) {
+  const int t0 = (c - T.n_page) * CH;   // TAIL: the chunk's first new token
+  // PAGE: a chunk lies in one page when pages hold 64 rows or more
+  const bool page_set = FORM == PAGE && a.pg >= CH && Cta::page_id(a, pt, c * CH / a.pg) >= 0;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    float2 kg = make_float2(1.f, 1.f), vg = kg;
+    if constexpr (SCALED) {
+      kg = *reinterpret_cast<const float2*>(ks + sm90::acc_col(t, 4 * g));
+      vg = *reinterpret_cast<const float2*>(vs + sm90::acc_col(t, 4 * g));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * g + e, j = sm90::acc_col(t, i);
+      float x = sc[i] * a.alpha;
+      if constexpr (SCALED) x *= e & 1 ? kg.y : kg.x;
+      float p = x * sm90::sigmoid(x) * a.inv_scaling;
+      if constexpr (SCALED) p *= e & 1 ? vg.y : vg.x;
+      bool ok = true;
+      if constexpr (FORM == PAGE) {
+        const int col = c * CH + j;
+        ok = col < T.lim && (a.pg >= CH ? page_set : Cta::page_id(a, pt, col >> a.pg_shift) >= 0);
+      } else if constexpr (FORM == TAIL) {
+        const int tt = t0 + j, col = T.cached + tt;
+        const int row = T.cached + row0 + sm90::acc_row(t, i);
+        ok = tt < T.live &&
+             (col == row || min(row, T.hist_end) - min(col, T.hist_end) > 0);
+      }
+      sc[i] = ok ? p : 0.f;
+    }
+    if constexpr (SCALED) asm volatile("" ::: "memory");
+  }
+}
+
+// ONE (the one-consumer instances, S <= 64): a warp whose 16 rows all lie
+// past new_len skips the pass (its sums are never stored); at decode that
+// is 3 warps of 4 (with two consumers the branch costs more than it saves).
+template <bool I8, bool ONE>
+__device__ __forceinline__ void silu_chunk(float (&sc)[32], const Args& a, const Cta& T,
+                                           const int* pt, int c, int row0, int t, const float* ks,
+                                           const float* vs) {
+  if constexpr (ONE) {
+    if (row0 + 16 * (t / 32) >= T.live) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      return;
+    }
+  }
+  if (c >= T.n_page)
+    silu_part<TAIL, false>(sc, a, T, pt, c, row0, t, ks, vs);
+  else if (T.fully_valid(a, pt, c * CH))
+    silu_part<NONE, I8>(sc, a, T, pt, c, row0, t, ks, vs);
+  else
+    silu_part<PAGE, I8>(sc, a, T, pt, c, row0, t, ks, vs);
+}
+
+// The maps a CTA reads: q, new_k, new_v as [B S, H dh] bf16; the pools as
+// [P pg, H dh] (bf16 panels, or int8 rows); int8: the scales as [P pg, H].
+struct Maps {
+  CUtensorMap q, nk, nv, kp, vp, ks, vs;
+};
+
+// The producer thread: Q once, then each chunk's K and V (int8: the page
+// chunks' int8 rows and scales, into the int8 ring).
+template <int DH, int NC, bool I8>
+__device__ __forceinline__ void produce(const Maps& m, const Args& a, const Cta& T,
+                                        const int* pt, unsigned char* tiles,
+                                        typename Smem<DH, NC, I8>::Bars* bars) {
+  using S = Smem<DH, NC, I8>;
+  using L = Tile<DH>;
+  const int n = T.c_end - T.c_begin;
+  if (n == 0) return;
+  const int col = T.h * DH;
+  const int br = a.pg < CH ? a.pg : CH, nb = CH / br;   // boxes of a page chunk
+  sm90::mbar_expect_tx(&bars->q_full, NC * L::BYTES);
+  for (int w = 0; w < NC; ++w)
+    sm90::load_tile<DH>(tiles + w * L::BYTES, &m.q, col, T.b * a.S + T.m0 + w * QR,
+                        &bars->q_full);
+  for (int u = 0; u < n; ++u) {
+    const int c = T.c_begin + u;
+    if constexpr (I8) {
+      // int8 rows and scales into the int8 ring; the wideners feed the
+      // bf16 ring, new-token chunks too
+      if (c >= T.n_page) break;
+      const int rs = u % S::RS;
+      unsigned char* rk = tiles + S::RW + rs * 2 * S::RAW;
+      unsigned char* rks = tiles + S::RSC + rs * 2 * CH * a.H * 4;
+      uint64_t* full = &bars->raw.full[rs];
+      bars->raw.producer_acquire(u, 2 * S::RAW + (a.scale_tma ? 2 * CH * a.H * 4 : 0));
+      for (int s = 0; s < nb; ++s) {
+        const int row = T.pool_row(a, pt, c * CH + s * br);
+        sm90::tma_load_2d(rk + s * br * DH, &m.kp, col, row, full);
+        sm90::tma_load_2d(rk + S::RAW + s * br * DH, &m.vp, col, row, full);
+        if (a.scale_tma) {
+          sm90::tma_load_2d(rks + s * br * a.H * 4, &m.ks, 0, row, full);
+          sm90::tma_load_2d(rks + (CH + s * br) * a.H * 4, &m.vs, 0, row, full);
+        }
+      }
+    } else {
+      const int st = u % S::ST;
+      unsigned char* kt = tiles + S::KV + st * 2 * L::BYTES;
+      uint64_t* full = &bars->kv.full[st];
+      bars->kv.producer_acquire(u, 2 * L::BYTES);
+      if (c < T.n_page) {
+        for (int s = 0; s < nb; ++s) {
+          const int row = T.pool_row(a, pt, c * CH + s * br);
+          for (int i = 0; i < L::NP; ++i) {
+            const int off = i * L::PANEL + s * br * L::PB;
+            sm90::tma_load_2d(kt + off, &m.kp, col + i * L::PW, row, full);
+            sm90::tma_load_2d(kt + L::BYTES + off, &m.vp, col + i * L::PW, row, full);
+          }
+        }
+      } else {
+        const int row = T.b * a.S + (c - T.n_page) * CH;
+        sm90::load_tile<DH>(kt, &m.nk, col, row, full);
+        sm90::load_tile<DH>(kt + L::BYTES, &m.nv, col, row, full);
+      }
+    }
+  }
+}
+
+// The widening warps (int8) feed the bf16 ring, use by use (a ring takes
+// one producer: its parity waits cannot tell a round from the one before
+// the last): each page chunk's int8 rows from the int8 ring, widened into
+// the bf16 stage with their scales, after which they free the int8 stage
+// and arrive on the consumers' full barrier; each new-token chunk by TMA,
+// from thread 0. `w` is the thread's index among them.
+template <int DH, int NC>
+__device__ __forceinline__ void widen(const Maps& m, const Args& a, const Cta& T, const int* pt,
+                                      unsigned char* tiles,
+                                      typename Smem<DH, NC, true>::Bars* bars, int w) {
+  using S = Smem<DH, NC, true>;
+  using L = Tile<DH>;
+  constexpr int VPR = DH / 16;   // 16-byte int8 vectors per row
+  constexpr int WIDEN = Roles<NC, true>::WIDEN;
+  const int n = T.c_end - T.c_begin;
+  for (int u = 0; u < n; ++u) {
+    const int c = T.c_begin + u, st = u % S::ST, rs = u % S::RS;
+    unsigned char* kt = tiles + S::KV + st * 2 * L::BYTES;
+    if (c >= T.n_page) {   // new tokens: bf16, straight into the stage
+      if (w == 0) {
+        const int row = T.b * a.S + (c - T.n_page) * CH;
+        bars->kv.producer_acquire(u, 2 * L::BYTES);
+        sm90::load_tile<DH>(kt, &m.nk, T.h * DH, row, &bars->kv.full[st]);
+        sm90::load_tile<DH>(kt + L::BYTES, &m.nv, T.h * DH, row, &bars->kv.full[st]);
+      }
+      continue;
+    }
+    float* ks = reinterpret_cast<float*>(tiles + S::CSC) + st * 2 * CH;
+    const unsigned char* rk = tiles + S::RW + rs * 2 * S::RAW;
+    const float* rks = reinterpret_cast<const float*>(tiles + S::RSC) + rs * 2 * CH * a.H;
+    sm90::mbar_wait(&bars->kv.empty[st], ((u / S::ST) & 1) ^ 1);   // the bf16 stage is free
+    if (!a.scale_tma) {
+      for (int x = w; x < 2 * CH; x += WIDEN) {
+        const int pos = c * CH + x % CH, pid = Cta::page_id(a, pt, pos / a.pg);
+        const size_t at = ((size_t)pid * a.pg + pos % a.pg) * a.H + T.h;
+        const float* src = x < CH ? a.k_scales : a.v_scales;
+        sm90::cp_async4(ks + x, pid >= 0 ? src + at : src, pid >= 0);
+      }
+      sm90::cp_async_commit();
+    }
+    bars->raw.consumer_wait(u);
+    const uint32_t src = sm90::smem_u32(rk), dst = sm90::smem_u32(kt);
+#pragma unroll (NC == 1 ? 2 : 1)
+    for (uint32_t v = w; v < 2 * CH * VPR; v += WIDEN) {
+      const uint32_t kv = v / (CH * VPR), r = (v / VPR) % CH, c16 = (v % VPR) * 16;
+      uint32_t o[8];
+      widen16(o, sm90::ld_shared4(src + kv * S::RAW + r * DH + c16));
+      const uint32_t d = dst + kv * L::BYTES;
+      sm90::st_shared4(d + tile_off<DH>(r, c16), make_uint4(o[0], o[1], o[2], o[3]));
+      sm90::st_shared4(d + tile_off<DH>(r, c16 + 8), make_uint4(o[4], o[5], o[6], o[7]));
+    }
+    if (a.scale_tma) {
+      for (int x = w; x < 2 * CH; x += WIDEN) ks[x] = rks[x * a.H + T.h];
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    bars->raw.consumer_release(u);   // the int8 stage is read
+    sm90::fence_async_smem();         // the widened tiles, for wgmma
+    sm90::named_sync<WIDEN>(WIDENED);
+    if (w == 0) sm90::mbar_arrive(&bars->kv.full[st]);
+  }
+}
+
+// Sum the cluster's partial outputs over this CTA's share of the rows, in
+// rank order, and store them as bf16 (rows i >= new_len: zeros). The
+// consumer threads call it, between two cluster barriers.
+template <int DH, int NC>
+__device__ __forceinline__ void cluster_sum(const Args& a, const Cta& T, const float* ob,
+                                            bf16* __restrict__ out, uint32_t rank, int splits) {
+  constexpr int V4 = DH / 4, LD = DH + OPAD;
+  const int r0 = (int)rank * NC * QR / splits, rr = ((int)rank + 1) * NC * QR / splits - r0;
+  const uint32_t base = sm90::smem_u32(ob);
+  for (int e = threadIdx.x; e < rr * V4; e += NC * 128) {
+    const int row = r0 + e / V4, c4 = e % V4;
+    const uint32_t addr = base + (row * LD + 4 * c4) * 4;
+    float4 s = sm90::ld_cluster4(sm90::map_rank(addr, 0));
+    for (int q = 1; q < splits; ++q) {
+      const float4 v = sm90::ld_cluster4(sm90::map_rank(addr, q));
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const int i = T.m0 + row;
+    if (i >= a.S) continue;
+    if (i >= T.live) s = make_float4(0.f, 0.f, 0.f, 0.f);   // padded query rows
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y), hi = __floats2bfloat162_rn(s.z, s.w);
+    uint2 pk;
+    pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+    pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + (((size_t)T.b * a.S + i) * a.H + T.h) * DH + 4 * c4) = pk;
+  }
+}
+
+// One CTA: NC consumer warpgroups of 64 query rows, the producer's warpgroup
+// and (one-consumer int8) a second wideners' one (`Roles`). 384 threads at
+// most: 168 registers a thread at entry; setmaxnreg moves them to the
+// consumers.
+template <int DH, int NC, bool I8>
+__global__ void __launch_bounds__(384, 1)
+paged_wgmma_kernel(const __grid_constant__ Maps m, bf16* __restrict__ out, Args a) {
+  using R = Roles<NC, I8>;
+  using S = Smem<DH, NC, I8>;
+  using L = Tile<DH>;
+  using O = sm90::Out<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  auto* bars = reinterpret_cast<typename S::Bars*>(smem_raw);
+  unsigned char* tiles = sm90::align1024(smem_raw + sizeof(typename S::Bars));
+  float* ob = reinterpret_cast<float*>(tiles);   // after the chunks: the fp32 O
+
+  const uint32_t rank = sm90::cluster_rank();
+  const int splits = gridDim.x;
+  const Cta T(a, NC * QR, rank, splits);
+  const int* pt = a.page_table + (size_t)T.b * a.maxp;   // the user's page ids (cached reads)
+  if (threadIdx.x == 0) {
+    bars->kv.init(NC * 128);
+    if (I8) bars->raw.init(R::WIDEN);
+    sm90::mbar_init(&bars->q_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg >= NC) {   // the producer's warpgroup (and the second wideners')
+    sm90::setmaxnreg_dec<R::PRODUCER>();
+    const int pt_idx = threadIdx.x - NC * 128;
+    if (pt_idx == 0) produce<DH, NC, I8>(m, a, T, pt, tiles, bars);
+    if constexpr (I8) {
+      if (pt_idx >= 32) widen<DH, NC>(m, a, T, pt, tiles, bars, pt_idx - 32);
+    }
+    sm90::cluster_sync();   // every CTA's O is in its shared memory
+    sm90::cluster_sync();   // and stays there until the cluster has read it
+  } else {          // consumers
+    sm90::setmaxnreg_inc<R::CONSUMER>();
+    const int t = threadIdx.x % 128;
+    const int row0 = T.m0 + wg * QR;   // the consumer's first query row
+    const int n = T.c_end - T.c_begin;
+    const unsigned char* q_s = tiles + wg * L::BYTES;
+    float o[O::NCH][O::CH / 2];
+#pragma unroll
+    for (int j = 0; j < O::NCH; ++j)
+#pragma unroll
+      for (int i = 0; i < O::CH / 2; ++i) o[j][i] = 0.f;
+    uint32_t pa[16];   // P, as A fragments
+    float sc[32];
+    if (n > 0) sm90::mbar_wait(&bars->q_full, 0);
+    for (int u = 0; u < n; ++u) {
+      const int c = T.c_begin + u, st = u % S::ST;
+      const unsigned char* kt = tiles + S::KV + st * 2 * L::BYTES;
+      const float* ks = reinterpret_cast<const float*>(tiles + S::CSC) + st * 2 * CH;
+      bars->kv.consumer_wait(u);
+      sm90::wgmma_fence();
+      sm90::score_chain<DH>(sc, q_s, kt);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      silu_chunk<I8, NC == 1>(sc, a, T, pt, c, row0, t, ks, ks + CH);
+      sm90::acc_to_a(pa, sc);
+      sm90::fence_out<DH>(o);
+      sm90::wgmma_fence();
+      sm90::pv_chain<DH>(o, pa, kt + L::BYTES);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_out<DH>(o);
+      bars->kv.consumer_release(u);
+    }
+    // every consumer is done with Q and the stages: O goes where they were
+    sm90::named_sync<NC * 128>(CONSUMERS_DONE);
+#pragma unroll
+    for (int j = 0; j < O::NCH; ++j)
+#pragma unroll
+      for (int i = 0; i < O::CH / 2; i += 2)
+        *reinterpret_cast<float2*>(ob + (wg * QR + sm90::acc_row(t, i)) * (DH + OPAD) +
+                                   j * O::CH + sm90::acc_col(t, i)) =
+            make_float2(o[j][i], o[j][i + 1]);
+    sm90::cluster_sync();
+    cluster_sum<DH, NC>(a, T, ob, out, rank, splits);
+    sm90::cluster_sync();
+  }
+}
+
+}  // namespace wg
+
+// ------------------------------------------------ fp32 pages: scalar FMA
+namespace scalar {
 
 // Per-CTA view of one (user, head, query tile).
 struct Tile {
@@ -112,337 +612,6 @@ struct Tile {
     return __fdividef(x, 1.f + __expf(-x)) * a.inv_scaling;
   }
 };
-
-// ------------------------------------------------ bf16 pages: tensor cores
-namespace tc {
-
-constexpr int BM = 64;    // query rows per CTA: 4 row blocks of 16
-constexpr int BN = 32;    // key positions per ring stage
-constexpr int NT = 256;   // 8 warps: row block warp % 4, half warp / 4
-
-template <int DH>
-struct Smem {
-  static constexpr int KS = DH + 8;   // Q/K/V row stride: +16 B, conflict-free
-  static constexpr int PS = BN + 8;   // P row stride
-  // + the user's page-table row (maxp ints) after these
-  static constexpr size_t bytes =
-      sizeof(bf16) * (BM * KS + 4 * BN * KS + BM * PS) + sizeof(int) * 2 * BN;
-};
-
-using sm90::cp_async16;
-using sm90::cp_async4;
-using sm90::cp_async_commit;
-using sm90::cp_async_wait;
-using sm90::ld32;
-using sm90::ldmatrix_x4;
-using sm90::ldmatrix_x4_trans;
-using sm90::mma;
-using sm90::pack_bf16;
-using sm90::widen16;
-
-// One chunk of BN key positions starting at `pos0`: the warp's 16 x 16 block
-// of S = Q K^T, mask and silu in registers, P (bf16) through shared memory,
-// then the warp's 16 rows x DH/2 columns of O += P V. Every thread of the
-// CTA calls it; the last sync frees the K/V tiles and P. With SCALED (int8
-// pages) the scores take the keys' scales and P the values'.
-template <int DH, bool SCALED>
-__device__ __forceinline__ void chunk_math(
-    float (&o)[DH / 16][4], const bf16* q_s, const bf16* k_s, const bf16* v_s,
-    const int* ok_s, const float* ks_s, const float* vs_s, bf16* sP, const Tile& T,
-    const Args& a, int pos0, int rb, int hf, int lane) {
-  constexpr int KS = Smem<DH>::KS, PS = Smem<DH>::PS;
-  constexpr int OC = DH / 2;               // output columns per warp
-  constexpr int CW = BN / 2;               // score columns per warp
-  const int g = lane / 4, t = lane % 4;
-  const int mi = lane / 8, rr = lane % 8;  // ldmatrix: matrix and row of lane
-
-  // S = Q K^T on 16 rows x BN/2 columns; even and odd k-steps
-  // accumulate apart, so more mma chains are in flight
-  float s[2][CW / 8][4];
-#pragma unroll
-  for (int x = 0; x < 2; ++x)
-#pragma unroll
-    for (int j = 0; j < CW / 8; ++j) s[x][j][0] = s[x][j][1] = s[x][j][2] = s[x][j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const bf16* qr = q_s + g * KS + kk * 16 + 2 * t;
-    const uint32_t qa[4] = {ld32(qr), ld32(qr + 8 * KS), ld32(qr + 8),
-                            ld32(qr + 8 * KS + 8)};
-#pragma unroll
-    for (int j = 0; j < CW / 8; ++j) {
-      const bf16* kr = k_s + (hf * CW + j * 8 + g) * KS + kk * 16 + 2 * t;
-      mma(s[kk & 1][j], qa, ld32(kr), ld32(kr + 8));
-    }
-  }
-  // mask, silu and scale; P rounds to bf16 into shared memory
-#pragma unroll
-  for (int j = 0; j < CW / 8; ++j) {
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = rb * 16 + g + (e >> 1) * 8;
-      const int cl = hf * CW + j * 8 + 2 * t + (e & 1);
-      float sc = s[0][j][e] + s[1][j][e];
-      if constexpr (SCALED) sc *= ks_s[cl];
-      v[e] = ok_s[cl] && T.valid(r, pos0 + cl) ? T.prob(sc, a) : 0.f;
-      if constexpr (SCALED) v[e] *= vs_s[cl];
-    }
-    bf16* pr = sP + (rb * 16 + g) * PS + hf * CW + j * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(pr) = pack_bf16(v[0], v[1]);
-    *reinterpret_cast<uint32_t*>(pr + 8 * PS) = pack_bf16(v[2], v[3]);
-  }
-  __syncthreads();
-
-  // O += P V on 16 rows x DH/2 columns: P through ldmatrix, V through
-  // ldmatrix.trans, two n-tiles at a time
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    uint32_t pa[4];
-    ldmatrix_x4(pa, sP + (rb * 16 + rr + (mi & 1) * 8) * PS + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < OC / 16; ++np) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, v_s + (kk * 16 + rr + (mi & 1) * 8) * KS +
-                                hf * OC + np * 16 + (mi >> 1) * 8);
-      mma(o[2 * np], pa, bv[0], bv[1]);
-      mma(o[2 * np + 1], pa, bv[2], bv[3]);
-    }
-  }
-  __syncthreads();   // the K/V tiles and P are free again
-}
-
-// The warp's accumulator rows to `ob` (row 0 of this user and head); rows
-// past new_len kept o = 0, so padded query rows come out as zero.
-template <int DH>
-__device__ __forceinline__ void store_out(bf16* ob, size_t tok_stride,
-                                          const float (&o)[DH / 16][4], const Tile& T,
-                                          int S, int rb, int hf, int lane) {
-  constexpr int OC = DH / 2;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = T.m0 + rb * 16 + g;
-#pragma unroll
-  for (int j = 0; j < OC / 8; ++j) {
-    const int col = hf * OC + j * 8 + 2 * t;
-    if (r0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * tok_stride + col) =
-          __floats2bfloat162_rn(o[j][0], o[j][1]);
-    if (r0 + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r0 + 8) * tok_stride + col) =
-          __floats2bfloat162_rn(o[j][2], o[j][3]);
-  }
-}
-
-// Warp w owns query rows 16 * (w % 4) .. +15. For S = Q K^T it takes chunk
-// columns (BN / 2) * (w / 4) .. +BN/2 and for O += P V head-dim columns
-// (DH / 2) * (w / 4) .. +DH/2, so the eight warps share the work of a chunk
-// without recomputing any of it; P passes between them through shared memory.
-template <int DH>
-__global__ void __launch_bounds__(NT, 2)
-kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-       const bf16* __restrict__ v_pages, const bf16* __restrict__ new_k,
-       const bf16* __restrict__ new_v, bf16* __restrict__ out, Args a) {
-  constexpr int KS = Smem<DH>::KS, PS = Smem<DH>::PS;
-  constexpr int VPR = DH / 8;              // 16-byte vectors per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BM][KS]
-  bf16* sK = sQ + BM * KS;                       // [2][BN][KS]
-  bf16* sV = sK + 2 * BN * KS;                   // [2][BN][KS]
-  bf16* sP = sV + 2 * BN * KS;                   // [BM][PS]
-  int* sOk = reinterpret_cast<int*>(sP + BM * PS);  // [2][BN]
-  int* sPT = sOk + 2 * BN;                          // [maxp]
-
-  const Tile T(a, BM);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rb = warp % 4, hf = warp / 4;
-  const size_t tok_stride = (size_t)a.H * DH;
-  const bf16* qb = q + ((size_t)T.b * a.S * a.H + T.h) * DH;
-  bf16* ob = out + ((size_t)T.b * a.S * a.H + T.h) * DH;
-
-  float o[DH / 16][4];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  if (T.rows_live > 0) {
-    // the user's page ids, read once; the Q tile joins the first chunk's
-    // copy group
-    for (int j = tid; j < a.maxp; j += NT) sPT[j] = a.page_table[(size_t)T.b * a.maxp + j];
-    for (int e = tid; e < BM * VPR; e += NT) {
-      const int r = e / VPR, vv = e % VPR;
-      const int i = T.m0 + r;
-      const bool ok = r < T.rows_live && i < a.S;
-      cp_async16(sQ + r * KS + vv * 8, ok ? qb + (size_t)i * tok_stride + vv * 8 : q, ok);
-    }
-    __syncthreads();
-    auto load_chunk = [&](int ci, int buf) {
-      constexpr int PER_THREAD = (BN * VPR + NT - 1) / NT;
-      long long off[PER_THREAD];
-      bool paged[PER_THREAD];
-#pragma unroll
-      for (int k = 0; k < PER_THREAD; ++k) {
-        const int pos = ci * BN + (tid + k * NT) / VPR;
-        off[k] = pos < T.n_pos ? T.kv_offset<DH>(a, sPT, pos, &paged[k]) : -1;
-      }
-#pragma unroll
-      for (int k = 0; k < PER_THREAD; ++k) {
-        const int e = tid + k * NT;
-        if (e >= BN * VPR) break;
-        const int c = e / VPR, vv = e % VPR;
-        const bool ok = off[k] >= 0;
-        const bf16* ks = ok ? (paged[k] ? k_pages : new_k) + off[k] + vv * 8 : k_pages;
-        const bf16* vs = ok ? (paged[k] ? v_pages : new_v) + off[k] + vv * 8 : v_pages;
-        cp_async16(sK + (buf * BN + c) * KS + vv * 8, ks, ok);
-        cp_async16(sV + (buf * BN + c) * KS + vv * 8, vs, ok);
-        if (vv == 0) sOk[buf * BN + c] = ok;
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-    };
-
-    const int n_chunks = (T.n_pos + BN - 1) / BN;
-    const bf16* q_s = sQ + rb * 16 * KS;
-    load_chunk(0, 0);
-    for (int ci = 0; ci < n_chunks; ++ci) {
-      const int buf = ci & 1;
-      if (ci + 1 < n_chunks) {
-        load_chunk(ci + 1, buf ^ 1);   // that stage was freed by the last sync
-        asm volatile("cp.async.wait_group 1;\n" ::);
-      } else {
-        asm volatile("cp.async.wait_group 0;\n" ::);
-      }
-      __syncthreads();
-      const bf16* k_s = sK + buf * BN * KS;
-      const bf16* v_s = sV + buf * BN * KS;
-      const int* ok_s = sOk + buf * BN;
-
-      chunk_math<DH, false>(o, q_s, k_s, v_s, ok_s, nullptr, nullptr, sP, T, a, ci * BN,
-                            rb, hf, lane);
-    }
-  }
-
-  store_out<DH>(ob, tok_stride, o, T, a.S, rb, hf, lane);
-}
-
-// ---- int8 pages
-template <int DH>
-struct SmemI8 {
-  static constexpr int KS = Smem<DH>::KS, PS = Smem<DH>::PS;
-  static constexpr int RS = DH + 16;  // int8 ring row stride in bytes: +16 B
-  // Q, one K and one V compute tile, P; the int8 ring; scales and validity
-  // per stage; + the user's page-table row (maxp ints) after these
-  static constexpr size_t bytes = sizeof(bf16) * (BM * KS + 2 * BN * KS + BM * PS) +
-                                  4 * BN * RS + sizeof(float) * 4 * BN +
-                                  sizeof(int) * 2 * BN;
-};
-
-template <int DH>
-__global__ void __launch_bounds__(NT, 2)
-kernel_i8(const bf16* __restrict__ q, const int8_t* __restrict__ k_pages,
-          const int8_t* __restrict__ v_pages, const float* __restrict__ k_scales,
-          const float* __restrict__ v_scales, const bf16* __restrict__ new_k,
-          const bf16* __restrict__ new_v, bf16* __restrict__ out, Args a) {
-  constexpr int KS = SmemI8<DH>::KS, PS = SmemI8<DH>::PS, RS = SmemI8<DH>::RS;
-  constexpr int VPR = DH / 8;              // 16-byte vectors per bf16 row
-  constexpr int VPR8 = DH / 16;            // 16-byte vectors per int8 row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);      // [BM][KS]
-  bf16* cK = sQ + BM * KS;                           // [BN][KS] compute tile
-  bf16* cV = cK + BN * KS;                           // [BN][KS]
-  bf16* sP = cV + BN * KS;                           // [BM][PS]
-  int8_t* rK = reinterpret_cast<int8_t*>(sP + BM * PS);   // [2][BN][RS] ring
-  int8_t* rV = rK + 2 * BN * RS;                          // [2][BN][RS]
-  float* sKs = reinterpret_cast<float*>(rV + 2 * BN * RS);   // [2][BN]
-  float* sVs = sKs + 2 * BN;                                  // [2][BN]
-  int* sOk = reinterpret_cast<int*>(sVs + 2 * BN);            // [2][BN]
-  int* sPT = sOk + 2 * BN;                                    // [maxp]
-
-  const Tile T(a, BM);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rb = warp % 4, hf = warp / 4;
-  const size_t tok_stride = (size_t)a.H * DH;
-  const bf16* qb = q + ((size_t)T.b * a.S * a.H + T.h) * DH;
-  bf16* ob = out + ((size_t)T.b * a.S * a.H + T.h) * DH;
-
-  float o[DH / 16][4];
-#pragma unroll
-  for (int j = 0; j < DH / 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  if (T.rows_live > 0) {
-    for (int j = tid; j < a.maxp; j += NT) sPT[j] = a.page_table[(size_t)T.b * a.maxp + j];
-    for (int e = tid; e < BM * VPR; e += NT) {   // joins the first copy group
-      const int r = e / VPR, vv = e % VPR;
-      const int i = T.m0 + r;
-      const bool ok = r < T.rows_live && i < a.S;
-      cp_async16(sQ + r * KS + vv * 8, ok ? qb + (size_t)i * tok_stride + vv * 8 : q, ok);
-    }
-    __syncthreads();
-    // page positions [ci * BN, +BN) below `cached`: int8 rows and their scales
-    auto load_pages = [&](int ci, int buf) {
-      for (int e = tid; e < BN * VPR8; e += NT) {
-        const int c = e / VPR8, vv = e % VPR8;
-        const int pos = ci * BN + c;
-        bool paged;
-        const long long off = pos < T.cached ? T.kv_offset<DH>(a, sPT, pos, &paged) : -1;
-        const bool ok = off >= 0;
-        cp_async16(rK + (buf * BN + c) * RS + vv * 16, ok ? k_pages + off + vv * 16 : k_pages, ok);
-        cp_async16(rV + (buf * BN + c) * RS + vv * 16, ok ? v_pages + off + vv * 16 : v_pages, ok);
-        if (vv == 0) {
-          const long long soff = ok ? off / DH : 0;   // (page, slot, head)
-          cp_async4(sKs + buf * BN + c, k_scales + soff, ok);
-          cp_async4(sVs + buf * BN + c, v_scales + soff, ok);
-          sOk[buf * BN + c] = ok;
-        }
-      }
-      cp_async_commit();
-    };
-
-    const bf16* q_s = sQ + rb * 16 * KS;
-    const int n_page_chunks = (T.cached + BN - 1) / BN;
-    if (n_page_chunks > 0) load_pages(0, 0);
-    for (int ci = 0; ci < n_page_chunks; ++ci) {
-      const int buf = ci & 1;
-      if (ci + 1 < n_page_chunks) {
-        load_pages(ci + 1, buf ^ 1);   // that stage was freed by the last sync
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      // widen the arrived int8 rows into the compute tiles
-      for (int e = tid; e < BN * VPR8; e += NT) {
-        const int c = e / VPR8, vv = e % VPR8;
-        widen16(cK + c * KS + vv * 16,
-                *reinterpret_cast<const int4*>(rK + (buf * BN + c) * RS + vv * 16));
-        widen16(cV + c * KS + vv * 16,
-                *reinterpret_cast<const int4*>(rV + (buf * BN + c) * RS + vv * 16));
-      }
-      __syncthreads();
-      chunk_math<DH, true>(o, q_s, cK, cV, sOk + buf * BN, sKs + buf * BN, sVs + buf * BN,
-                           sP, T, a, ci * BN, rb, hf, lane);
-    }
-    // the new tokens' tail, bf16, straight into the compute tiles
-    for (int pos0 = T.cached; pos0 < T.n_pos; pos0 += BN) {
-      for (int e = tid; e < BN * VPR; e += NT) {
-        const int c = e / VPR, vv = e % VPR;
-        const bool ok = pos0 + c < T.n_pos;
-        const size_t off =
-            (((size_t)T.b * a.S + (pos0 + c - T.cached)) * a.H + T.h) * DH + vv * 8;
-        cp_async16(cK + c * KS + vv * 8, ok ? new_k + off : new_k, ok);
-        cp_async16(cV + c * KS + vv * 8, ok ? new_v + off : new_v, ok);
-        if (vv == 0) sOk[c] = ok;
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      chunk_math<DH, false>(o, q_s, cK, cV, sOk, nullptr, nullptr, sP, T, a, pos0, rb, hf,
-                            lane);
-    }
-  }
-  store_out<DH>(ob, tok_stride, o, T, a.S, rb, hf, lane);
-}
-
-}  // namespace tc
-
-// ------------------------------------------------ fp32 pages: scalar FMA
-namespace scalar {
 
 constexpr int BM = 64;    // query rows per CTA
 constexpr int BN = 32;    // key positions per chunk
@@ -562,102 +731,164 @@ kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
 
 }  // namespace scalar
 
-template <typename E, typename Kern>
-int launch_kernel(Kern kern, size_t smem, int bm, int nt, const void* q,
-                  const void* kp, const void* vp, const void* nk, const void* nv,
-                  void* out, const Args& a, int B, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + bm - 1) / bm, a.H, B);
-  kern<<<grid, nt, smem, st>>>(
-      static_cast<const E*>(q), static_cast<const E*>(kp),
-      static_cast<const E*>(vp), static_cast<const E*>(nk),
-      static_cast<const E*>(nv), static_cast<E*>(out), a);
-  return (int)cudaGetLastError();
+
+// ------------------------------------------------ host
+template <int DH, int NC, bool I8>
+int launch_wg(const void* q, const void* kp, const void* vp, const void* nk, const void* nv,
+              void* out, Args a, int B, int splits, cudaStream_t st) {
+  using S = wg::Smem<DH, NC, I8>;
+  const size_t smem = S::bytes(a.H);
+  if (smem > 232448) return -4;   // the int8 scale stages of many heads
+  a.scale_tma = S::TMA_SCALES && (4 * a.H) % 16 == 0;
+  wg::Maps m{};
+  const uint32_t br = a.pg < wg::CH ? a.pg : wg::CH, pw = sm90::Tile<DH>::PW;
+  const uint64_t rows = (uint64_t)a.P * a.pg, cols = (uint64_t)a.H * DH, T = (uint64_t)B * a.S;
+  int err = sm90::make_tile_map(&m.q, q, T, cols, cols, wg::QR, pw);
+  if (!err) err = sm90::make_tile_map(&m.nk, nk, T, cols, cols, wg::CH, pw);
+  if (!err) err = sm90::make_tile_map(&m.nv, nv, T, cols, cols, wg::CH, pw);
+  if (I8) {
+    const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8, f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+    if (!err) err = sm90::make_map(&m.kp, u8, 1, kp, rows, cols, cols, br, DH, none);
+    if (!err) err = sm90::make_map(&m.vp, u8, 1, vp, rows, cols, cols, br, DH, none);
+    if (!err && a.scale_tma) err = sm90::make_map(&m.ks, f32, 4, a.k_scales, rows, a.H, a.H, br, a.H, none);
+    if (!err && a.scale_tma) err = sm90::make_map(&m.vs, f32, 4, a.v_scales, rows, a.H, a.H, br, a.H, none);
+  } else {
+    if (!err) err = sm90::make_tile_map(&m.kp, kp, rows, cols, cols, br, pw);
+    if (!err) err = sm90::make_tile_map(&m.vp, vp, rows, cols, cols, br, pw);
+  }
+  if (err) return err;
+  const dim3 grid(splits, a.H, B * a.qblocks);
+  return sm90::launch_cluster(wg::paged_wgmma_kernel<DH, NC, I8>, smem, grid,
+                              wg::Roles<NC, I8>::THREADS, splits, st, m, static_cast<bf16*>(out),
+                              a);
 }
 
-template <typename E, int DH>
-int launch(const void* q, const void* kp, const void* vp, const void* nk,
-           const void* nv, void* out, const Args& a, int B, cudaStream_t st) {
-  if constexpr (sizeof(E) == 2)
-    return launch_kernel<E>(tc::kernel<DH>, tc::Smem<DH>::bytes + sizeof(int) * a.maxp,
-                            tc::BM, tc::NT,
-                            q, kp, vp, nk, nv, out, a, B, st);
-  else
-    return launch_kernel<E>(scalar::kernel<DH>, scalar::Smem<DH>::bytes,
-                            scalar::BM, scalar::NT, q, kp, vp, nk, nv, out, a,
-                            B, st);
-}
-
-template <typename E>
-int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
-                const void* nk, const void* nv, void* out, const Args& a, int B,
-                cudaStream_t st) {
+// The bf16 (I8 false) or int8 instance at head dim dh with nc consumers.
+template <bool I8>
+int dispatch_wg(int dh, int nc, const void* q, const void* kp, const void* vp, const void* nk,
+                const void* nv, void* out, Args a, int B, int splits, cudaStream_t st) {
+  if (nc != 1 && nc != 2) return -1;
+  if (splits < 1 || splits > 16) return -1;
+  if (!(a.pg % wg::CH == 0 || a.pg == 8 || a.pg == 16 || a.pg == 32)) return -1;
+  a.qblocks = (a.S + nc * wg::QR - 1) / (nc * wg::QR);
+  a.pg_shift = a.pg == 8 ? 3 : a.pg == 16 ? 4 : 5;
+#define PAGED_NC(D)                                                                   \
+  return nc == 1 ? launch_wg<D, 1, I8>(q, kp, vp, nk, nv, out, a, B, splits, st)      \
+                 : launch_wg<D, 2, I8>(q, kp, vp, nk, nv, out, a, B, splits, st)
   switch (dh) {
-    case 32: return launch<E, 32>(q, kp, vp, nk, nv, out, a, B, st);
-    case 64: return launch<E, 64>(q, kp, vp, nk, nv, out, a, B, st);
-    case 128: return launch<E, 128>(q, kp, vp, nk, nv, out, a, B, st);
-    case 256: return launch<E, 256>(q, kp, vp, nk, nv, out, a, B, st);
+    case 32: PAGED_NC(32);
+    case 64: PAGED_NC(64);
+    case 128: PAGED_NC(128);
+    case 256: PAGED_NC(256);
     default: return -1;
   }
+#undef PAGED_NC
+}
+
+// Clusters of `splits` CTAs of one instance that the card holds at once.
+template <int DH, int NC, bool I8>
+int cluster_capacity(int H, int splits) {
+  const auto kern = wg::paged_wgmma_kernel<DH, NC, I8>;
+  const size_t smem = wg::Smem<DH, NC, I8>::bytes(H);
+  if (smem > 232448) return -4;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && splits > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, 1, 1);
+  cfg.blockDim = dim3(wg::Roles<NC, I8>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 template <int DH>
-int launch_i8(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
-              const void* nk, const void* nv, void* out, const Args& a, int B,
-              cudaStream_t st) {
-  const size_t smem = tc::SmemI8<DH>::bytes + sizeof(int) * a.maxp;
-  cudaError_t err = cudaFuncSetAttribute(
-      tc::kernel_i8<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + tc::BM - 1) / tc::BM, a.H, B);
-  tc::kernel_i8<DH><<<grid, tc::NT, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(kp),
-      static_cast<const int8_t*>(vp), ks, vs, static_cast<const bf16*>(nk),
-      static_cast<const bf16*>(nv), static_cast<bf16*>(out), a);
-  return (int)cudaGetLastError();
+int launch_scalar(const void* q, const void* kp, const void* vp, const void* nk, const void* nv,
+                  void* out, const Args& a, int B, cudaStream_t st) {
+  using F = const float*;
+  const dim3 grid((a.S + scalar::BM - 1) / scalar::BM, a.H, B);
+  return sm90::launch(scalar::kernel<DH>, scalar::Smem<DH>::bytes, grid, scalar::NT, st,
+                      static_cast<F>(q), static_cast<F>(kp), static_cast<F>(vp), static_cast<F>(nk),
+                      static_cast<F>(nv), static_cast<float*>(out), a);
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32 (q, pages, new K/V and out share it).
+// dtype: 0 = bf16 (the wgmma kernel), 1 = fp32 (the scalar kernel); q, pages,
+// new K/V and out share it. P: pages in the pool. splits and consumers: the
+// plan of `paged_split_plan` (bf16 only: 1 to 16, and 1 or 2; bf16 pages
+// also need page sizes 8, 16, 32 or a multiple of 64).
 // num_targets may be null. Returns the CUDA error code of the launch (0 on
-// success) or -1 for an unsupported dtype or head dim.
+// success), -1 for an unsupported dtype, head dim, page size or plan, -2 / -3
+// when a tensor map cannot be made, -4 when the int8 scale stages of H heads
+// do not fit in shared memory.
 extern "C" int paged_hstu_delta_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const int* page_table, const int* cached_len, const void* new_k,
     const void* new_v, const int* new_lens, const int* num_targets, void* out,
-    int B, int S, int H, int dh, int pg, int maxp, float alpha,
-    float inv_scaling, void* stream) {
+    int B, int S, int H, int dh, int pg, int maxp, int P, int splits, int consumers,
+    float alpha, float inv_scaling, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  const Args a{page_table, cached_len, new_lens, num_targets, S, H, pg, maxp,
-               alpha, inv_scaling};
+  const Args a{page_table, cached_len, new_lens, num_targets, nullptr, nullptr, S, H, pg, maxp,
+               P, 0, 0, 0, alpha, inv_scaling};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dh<bf16>(dh, q, k_pages, v_pages, new_k, new_v, out, a, B, st);
-  if (dtype == 1)
-    return dispatch_dh<float>(dh, q, k_pages, v_pages, new_k, new_v, out, a, B, st);
-  return -1;
+    return dispatch_wg<false>(dh, consumers, q, k_pages, v_pages, new_k, new_v, out, a, B,
+                              splits, st);
+  if (dtype != 1) return -1;
+  switch (dh) {
+    case 32: return launch_scalar<32>(q, k_pages, v_pages, new_k, new_v, out, a, B, st);
+    case 64: return launch_scalar<64>(q, k_pages, v_pages, new_k, new_v, out, a, B, st);
+    case 128: return launch_scalar<128>(q, k_pages, v_pages, new_k, new_v, out, a, B, st);
+    case 256: return launch_scalar<256>(q, k_pages, v_pages, new_k, new_v, out, a, B, st);
+    default: return -1;
+  }
 }
 
 // The int8 page mode: q, new K/V and out bf16; k_pages / v_pages int8
-// [P, pg, H, dh] with fp32 scales [P, pg, H] per (token, head). Same return
-// codes.
+// [P, pg, H, dh] with fp32 scales [P, pg, H] per (token, head). Same
+// arguments and return codes.
 extern "C" int paged_hstu_delta_attention_int8_launch(
     const void* q, const void* k_pages, const void* v_pages, const float* k_scales,
     const float* v_scales, const int* page_table, const int* cached_len, const void* new_k,
     const void* new_v, const int* new_lens, const int* num_targets, void* out, int B, int S,
-    int H, int dh, int pg, int maxp, float alpha, float inv_scaling, void* stream) {
+    int H, int dh, int pg, int maxp, int P, int splits, int consumers, float alpha,
+    float inv_scaling, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  const Args a{page_table, cached_len, new_lens, num_targets, S, H, pg, maxp,
-               alpha, inv_scaling};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{page_table, cached_len, new_lens, num_targets, k_scales, v_scales, S, H, pg, maxp,
+               P, 0, 0, 0, alpha, inv_scaling};
+  return dispatch_wg<true>(dh, consumers, q, k_pages, v_pages, new_k, new_v, out, a, B, splits,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `splits` CTAs (1 to 16) of the bf16
+// (int8 = 0) or int8 instance at head dim dh with `consumers` consumer
+// warpgroups the card holds at once; negative on an error (-1 for an
+// unsupported instance, -4 when its shared memory does not fit).
+extern "C" int paged_cluster_capacity(int int8, int dh, int consumers, int H, int splits) {
+  if ((consumers != 1 && consumers != 2) || splits < 1 || splits > 16) return -1;
+#define PAGED_CAP(D)                                                                    \
+  return int8 ? (consumers == 1 ? cluster_capacity<D, 1, true>(H, splits)         \
+                                : cluster_capacity<D, 2, true>(H, splits))        \
+              : (consumers == 1 ? cluster_capacity<D, 1, false>(H, splits)        \
+                                : cluster_capacity<D, 2, false>(H, splits))
   switch (dh) {
-    case 32: return launch_i8<32>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
-    case 64: return launch_i8<64>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
-    case 128: return launch_i8<128>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
-    case 256: return launch_i8<256>(q, k_pages, v_pages, k_scales, v_scales, new_k, new_v, out, a, B, st);
+    case 32: PAGED_CAP(32);
+    case 64: PAGED_CAP(64);
+    case 128: PAGED_CAP(128);
+    case 256: PAGED_CAP(256);
     default: return -1;
   }
+#undef PAGED_CAP
 }

@@ -2,8 +2,9 @@
 // wgmma shared-memory descriptors and the bf16 m64nNk16 product with A from
 // shared memory or from registers, the repack of an accumulator into A
 // fragments, its fence / commit / wait, the TMA tensor map and the 64-row
-// panel tile it loads, the mbarrier full/empty ring, named barriers and
-// setmaxnreg.
+// panel tile it loads, the mbarrier full/empty ring, named barriers,
+// setmaxnreg, thread-block clusters (barrier, distributed shared memory,
+// launch) and the product chains of K1 and K6.
 //
 // Tile layout. A [64][D] bf16 tile arrives by TMA as D / PW panels of
 // [64 rows][PW columns], PW = 64 (128-byte rows, 128-byte swizzle) or, for
@@ -336,6 +337,44 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
                                           ~uintptr_t(1023));
 }
 
+// 16 bytes from / to a shared-memory address (the state space explicit: a
+// generic pointer passed down loses it, and generic accesses are slower).
+__device__ __forceinline__ uint4 ld_shared4(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void st_shared4(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+// ------------------------------------------------------------ clusters
+// Every thread of every CTA of the cluster arrives; the wait returns when
+// all have, and shared-memory writes before the arrive are visible to reads
+// after the wait, in any CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The same shared-memory address in the CTA of cluster rank `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
 // ------------------------------------------------------------ panel tiles
 constexpr int TILE_ROWS = 64;   // rows of every TMA tile
 
@@ -358,6 +397,80 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap*
   using L = Tile<DH>;
 #pragma unroll
   for (int i = 0; i < L::NP; ++i) tma_load_2d(dst + i * L::PANEL, map, col + i * L::PW, row, bar);
+}
+
+// ------------------------------------------------------------ product chains
+// K1's and K6's: S = Q K^T and O += P V over [64][DH] tiles.
+template <int DH>
+struct Out {
+  static constexpr int CH = DH < 128 ? DH : 128;   // output columns of one P V chain
+  static constexpr int NCH = DH / CH;              // chains per k-slice
+};
+
+// fast reciprocal: two ulps at most, far below the bf16 rounding of P
+__device__ __forceinline__ float sigmoid(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
+
+// A[64][DH] . B[64][DH]^T ([64 x 64]) as two sums, the even 16-wide
+// k-slices into `even` and the odd ones into `odd`, both tiles read K-major:
+// the score is even + odd, as the mma.sync forward before K1 summed it (a
+// single chain over all slices rounds otherwise, enough to move
+// chip_smoke.py's phase 6a loss past its limit). The descriptors are the
+// tiles' own plus a constant each (`desc_at`), made where the chain runs
+// (`opaque`): hoisted out of the tile loop, Q's 16 would pin 32 registers.
+template <int DH>
+__device__ __forceinline__ void score_chain(float (&even)[32], float (&odd)[32],
+                                            const unsigned char* a, const unsigned char* b) {
+  using L = Tile<DH>;
+  constexpr int SL = L::PW / 16;   // 16-wide k-slices per panel
+  const uint64_t da = sm90::opaque(sm90::smem_desc(a, 16, 8 * L::PB, L::SW));
+  const uint64_t db = sm90::opaque(sm90::smem_desc(b, 16, 8 * L::PB, L::SW));
+#pragma unroll
+  for (int s = 0; s < DH / 16; ++s) {
+    const int off = (s / SL) * L::PANEL + (s % SL) * 32;
+    sm90::Wgmma<64, 0>::run(s % 2 ? odd : even, sm90::desc_at(da, off), sm90::desc_at(db, off),
+                            s > 1);
+  }
+}
+
+// The same product in one sum (K6's score: no loss limit to keep, and 32
+// registers fewer beside O).
+template <int DH>
+__device__ __forceinline__ void score_chain(float (&acc)[32], const unsigned char* a,
+                                            const unsigned char* b) {
+  using L = Tile<DH>;
+  constexpr int SL = L::PW / 16;
+  const uint64_t da = sm90::opaque(sm90::smem_desc(a, 16, 8 * L::PB, L::SW));
+  const uint64_t db = sm90::opaque(sm90::smem_desc(b, 16, 8 * L::PB, L::SW));
+#pragma unroll
+  for (int s = 0; s < DH / 16; ++s) {
+    const int off = (s / SL) * L::PANEL + (s % SL) * 32;
+    sm90::Wgmma<64, 0>::run(acc, sm90::desc_at(da, off), sm90::desc_at(db, off), s > 0);
+  }
+}
+
+// o[64 x DH] += P[64 x 64] . X[64][DH]: P as A fragments (slice kk in
+// pa[4 kk .. 4 kk + 3]), X a tile read MN-major.
+template <int DH>
+__device__ __forceinline__ void pv_chain(float (&o)[Out<DH>::NCH][Out<DH>::CH / 2],
+                                         const uint32_t (&pa)[16], const unsigned char* x) {
+  using L = Tile<DH>;
+  using O = Out<DH>;
+  const uint64_t dx = sm90::opaque(sm90::smem_desc(x, L::PANEL, 8 * L::PB, L::SW));
+#pragma unroll
+  for (int kk = 0; kk < TILE_ROWS / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < O::NCH; ++j) {
+      const int c0 = j * O::CH;
+      const int off = (c0 / L::PW) * L::PANEL + (c0 % L::PW) * 2 + kk * 16 * L::PB;
+      sm90::WgmmaRS<O::CH, 1>::run(o[j], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                                   pa[4 * kk + 3], sm90::desc_at(dx, off), 1);
+    }
+}
+
+template <int DH>
+__device__ __forceinline__ void fence_out(float (&o)[Out<DH>::NCH][Out<DH>::CH / 2]) {
+#pragma unroll
+  for (int j = 0; j < Out<DH>::NCH; ++j) sm90::fence_regs(o[j]);
 }
 
 // ------------------------------------------------------------ host: tensor maps
@@ -384,24 +497,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a bf16 matrix [rows][cols] (`ld` elements between rows) read in
-// boxes of box_rows x box_cols, box_cols * 2 bytes being the swizzle span
-// (128 or 64). Rows and columns past the matrix read as zero. Returns 0, or
-// -2 without the driver entry point, -3 if the driver refuses the map.
-inline int make_tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                         uint64_t ld, uint32_t box_rows, uint32_t box_cols) {
+// The map of a matrix [rows][cols] of `type` elements of `esize` bytes
+// (`ld` elements between rows) read in boxes of box_rows x box_cols, with
+// the given swizzle. Rows and columns past the matrix read as zero, and a
+// box's bytes all count on its barrier. Returns 0, or -2 without
+// `cuTensorMapEncodeTiled`, -3 if it refuses the map.
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+                    uint64_t rows, uint64_t cols, uint64_t ld, uint32_t box_rows,
+                    uint32_t box_cols, CUtensorMapSwizzle sw) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return -2;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * 2};
+  const cuuint64_t strides[1] = {ld * esize};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUtensorMapSwizzle sw =
-      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+// The map of a bf16 matrix [rows][cols] (`ld` elements between rows) read in
+// boxes of box_rows x box_cols, box_cols * 2 bytes being the swizzle span
+// (128 or 64). Same return codes.
+inline int make_tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                         uint64_t ld, uint32_t box_rows, uint32_t box_cols) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, ld, box_rows,
+                  box_cols,
+                  box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // The maps of N packed bf16 tensors [T][H * dh], read in 64-row boxes of one
@@ -430,6 +553,34 @@ int launch(void (*kern)(A...), size_t smem, dim3 grid, int threads, cudaStream_t
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// Launch `kern` as clusters of `cluster` CTAs along x (gridDim.x a multiple
+// of it); more than 8 only where the card allows it. The CUDA error code of
+// the launch.
+template <typename... A>
+int launch_cluster(void (*kern)(A...), size_t smem, dim3 grid, int threads, int cluster,
+                   cudaStream_t st, typename same<A>::type... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

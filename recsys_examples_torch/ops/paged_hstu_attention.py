@@ -25,17 +25,55 @@ new tokens; half the page bytes), CPU tensors run the plain version on the
 dequantized pages. The kernel folds the scales into the scores and the
 probabilities and rounds p * v_scale to bf16 before p . v8 (the TPU kernel
 runs that product in fp32).
+
+On bf16 and int8 pages the kernel splits each user's keys over a cluster of
+CTAs and sums their partial outputs (SiLU attention has no normaliser); the
+plan and the chunk walk are stated here in plain Python (`paged_split_plan`
+and what follows it), with `paged_hstu_delta_attention_split_ref` as the
+kernel's arithmetic. Those pages take page sizes 8, 16, 32 or a multiple of
+64; fp32 pages (the scalar kernel) any.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
+
+
+def paged_delta_valid(page_table, cached_len, new_lens, num_targets, S: int,
+                      pg: int) -> torch.Tensor:
+    """The delta mask [B, S, maxp * pg + S] over [the cached positions ++ the
+    S new-token slots]: query i of user b against key column n."""
+    B, maxp = page_table.shape
+    Nc = maxp * pg
+    dev = page_table.device
+    pt = page_table.to(torch.int64)
+    cached = cached_len.to(torch.int64)[:, None]
+    nl = new_lens.to(torch.int64)[:, None]
+    pos_c = torch.arange(Nc, device=dev)[None, :]
+    ar_s = torch.arange(S, device=dev)[None, :]
+    col = torch.cat([pos_c.expand(B, Nc), cached + ar_s], dim=1)   # [B, N]
+    col_ok = torch.cat([
+        (pos_c < cached) & (pt >= 0).repeat_interleave(pg, dim=1),
+        ar_s < nl,
+    ], dim=1)
+    kv_len = cached + nl                                   # [B, 1]
+    row = cached + ar_s                                    # [B, S]
+    hist_end = kv_len
+    if num_targets is not None:
+        hist_end = kv_len - num_targets.to(torch.int64)[:, None]
+    rowc = torch.minimum(row, hist_end)[:, :, None]
+    colc = torch.minimum(col, hist_end)[:, None, :]
+    valid = (col[:, None, :] == row[:, :, None]) | (rowc - colc > 0)
+    valid &= (col_ok & (col < kv_len))[:, None, :]
+    valid &= (ar_s < nl)[:, :, None]                       # [B, S, N]
+    return valid
 
 
 def paged_hstu_delta_attention_ref(
@@ -58,36 +96,195 @@ def paged_hstu_delta_attention_ref(
     P, pg = k_pages.shape[:2]
     maxp = page_table.shape[1]
     Nc = maxp * pg
-    dev = q.device
-    pt = page_table.to(torch.int64)
-    pid = pt.clamp(0, P - 1)
+    pid = page_table.to(torch.int64).clamp(0, P - 1)
     kc = k_pages[pid].reshape(B, Nc, H, dh)
     vc = v_pages[pid].reshape(B, Nc, H, dh)
     k = torch.cat([kc, new_k.to(kc.dtype)], dim=1)        # [B, Nc + S, H, dh]
     v = torch.cat([vc, new_v.to(vc.dtype)], dim=1)
-    cached = cached_len.to(torch.int64)[:, None]
-    nl = new_lens.to(torch.int64)[:, None]
-    pos_c = torch.arange(Nc, device=dev)[None, :]
-    ar_s = torch.arange(S, device=dev)[None, :]
-    col = torch.cat([pos_c.expand(B, Nc), cached + ar_s], dim=1)   # [B, N]
-    col_ok = torch.cat([
-        (pos_c < cached) & (pt >= 0).repeat_interleave(pg, dim=1),
-        ar_s < nl,
-    ], dim=1)
-    kv_len = cached + nl                                   # [B, 1]
-    row = cached + ar_s                                    # [B, S]
-    hist_end = kv_len
-    if num_targets is not None:
-        hist_end = kv_len - num_targets.to(torch.int64)[:, None]
-    rowc = torch.minimum(row, hist_end)[:, :, None]
-    colc = torch.minimum(col, hist_end)[:, None, :]
-    valid = (col[:, None, :] == row[:, :, None]) | (rowc - colc > 0)
-    valid &= (col_ok & (col < kv_len))[:, None, :]
-    valid &= (ar_s < nl)[:, :, None]                       # [B, S, N]
+    valid = paged_delta_valid(page_table, cached_len, new_lens, num_targets, S, pg)
     sc = torch.einsum("bshd,bnhd->bhsn", q.float(), k.float()) * alpha
     p = F.silu(sc) * (1.0 / scaling_seqlen) * valid[:, None].to(sc.dtype)
     p = p.to(v.dtype).float()
     out = torch.einsum("bhsn,bnhd->bshd", p, v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------- the kernel's plan
+# The bf16 and int8 kernels' work split, stated in plain Python; the kernel
+# (`csrc/paged_hstu_attention.cu`) copies `paged_chunk_counts`,
+# `paged_cta_chunks`, `paged_chunk_fully_valid` and `paged_chunk_valid` line
+# by line, and the wrapper launches the plan of `paged_split_plan`.
+PAGED_CHUNK = 64         # key positions per chunk: one 64-row TMA tile
+PAGED_ROWS = 64          # query rows per consumer warpgroup (one wgmma M)
+PAGED_MAX_SPLITS = 16    # CTAs per cluster: 8 are portable, 16 where the card allows it
+
+
+class PagedPlan(NamedTuple):
+    splits: int      # CTAs that share one (user, query block, head): a cluster
+    consumers: int   # consumer warpgroups per CTA
+    rows: int        # query rows per CTA
+    qblocks: int     # query blocks per user
+    grid: Tuple[int, int, int]   # (splits, H, B * qblocks)
+
+
+def paged_query_blocks(S: int) -> Tuple[int, int, int]:
+    """(consumers, rows, query blocks) of a CTA: one consumer warpgroup for
+    S <= 64 (decode), two above."""
+    consumers = 1 if S <= PAGED_ROWS else 2
+    rows = PAGED_ROWS * consumers
+    return consumers, rows, -(-S // rows)
+
+
+def paged_split_plan(B: int, S: int, H: int, maxp: int, pg: int,
+                     capacity: Callable[[int, int], int]) -> PagedPlan:
+    """The grid of the bf16 and int8 kernels, from shapes alone (no device
+    value is read, so no host sync): the largest split over keys, at most
+    PAGED_MAX_SPLITS and at most the chunks a user can have, whose clusters
+    (one per user, query block and head) the card holds all at once.
+    `capacity(consumers, splits)` is how many clusters of `splits` CTAs it
+    holds (the wrapper asks the card). A second wave of clusters costs more
+    than the split saves: an H100 holds 39 clusters of 3 and 30 of 4, so the
+    serving shape's 32 (user, head) pairs split 3 ways (PERF.md §6)."""
+    # a chunk is one box of one page (pg a multiple of 64) or 64 / pg boxes
+    # of whole pages (8, 16 or 32 rows: whole 8-row swizzle atoms)
+    if not (pg % PAGED_CHUNK == 0 or pg in (8, 16, 32)):
+        raise ValueError(f"the bf16 and int8 paged kernels take page sizes 8, 16, 32 or a "
+                         f"multiple of {PAGED_CHUNK}, got {pg}")
+    consumers, rows, qblocks = paged_query_blocks(S)
+    clusters = B * H * qblocks
+    most = -(-maxp * pg // PAGED_CHUNK) + -(-min(S, rows) // PAGED_CHUNK)
+    splits = min(PAGED_MAX_SPLITS, most)
+    while splits > 1 and clusters > capacity(consumers, splits):
+        splits -= 1
+    return PagedPlan(splits, consumers, rows, qblocks, (splits, H, B * qblocks))
+
+
+def paged_chunk_counts(cached: int, new_len: int, S: int, m0: int, rows: int, maxp: int,
+                       pg: int) -> Tuple[int, int]:
+    """(page chunks, tail chunks) of the query block at row m0: chunk c <
+    n_page covers cached positions [64 c, 64 c + 64), clipped to the page
+    table's reach; chunk n_page + u the new tokens [64 u, 64 u + 64) that the
+    block's rows can see. (0, 0) for a block without a live row."""
+    live = min(new_len, S)
+    if live <= m0:
+        return 0, 0
+    n_page = -(-min(cached, maxp * pg) // PAGED_CHUNK)
+    n_tail = -(-min(live, m0 + rows) // PAGED_CHUNK)
+    return n_page, n_tail
+
+
+def paged_cta_chunks(rank: int, splits: int, n: int) -> Tuple[int, int]:
+    """The chunks [begin, end) of the CTA of cluster rank `rank`: an even
+    share of the block's n chunks, in order."""
+    return rank * n // splits, (rank + 1) * n // splits
+
+
+def paged_chunk_fully_valid(c0: int, cached: int, hist_end: int, page_row, pg: int,
+                            maxp: int) -> bool:
+    """The page chunk at position c0 is valid for every live row: it ends
+    below both the cache and the history end (every column col < hist_end,
+    and every row cached + i > col), and each page it touches is set. Such a
+    chunk takes no mask."""
+    if c0 + PAGED_CHUNK > min(cached, hist_end):
+        return False
+    return all(j < maxp and page_row[j] >= 0
+               for j in range(c0 // pg, (c0 + PAGED_CHUNK - 1) // pg + 1))
+
+
+def paged_chunk_valid(rows, c: int, n_page: int, cached: int, new_len: int, hist_end: int,
+                      S: int, page_row, pg: int, maxp: int) -> torch.Tensor:
+    """The mask of chunk c for query rows `rows` [R] (int64), [R, 64], live
+    rows only: a page chunk's column test (below the cache and the history
+    end, page set), or a tail chunk's delta mask."""
+    j = torch.arange(PAGED_CHUNK)
+    if c < n_page:
+        col = c * PAGED_CHUNK + j
+        page = col // pg
+        row_ids = torch.as_tensor(page_row, dtype=torch.int64)
+        set_ = (page < maxp) & (row_ids[page.clamp(max=maxp - 1)] >= 0)
+        ok = (col < min(cached, hist_end)) & set_
+        return ok[None, :].expand(len(rows), PAGED_CHUNK)
+    t = (c - n_page) * PAGED_CHUNK + j
+    col = (cached + t)[None, :]
+    row = (cached + rows)[:, None]
+    he = torch.tensor(hist_end)
+    delta = (col == row) | (torch.minimum(row, he) - torch.minimum(col, he) > 0)
+    return (t < min(new_len, S))[None, :] & delta
+
+
+def paged_hstu_delta_attention_split_ref(
+    q, k_pages, v_pages, page_table, cached_len, new_k, new_v, new_lens, num_targets,
+    alpha: float, scaling_seqlen: float, *, splits: int, k_scales=None, v_scales=None,
+):
+    """The bf16 and int8 kernels' arithmetic in plain PyTorch: per (user,
+    query block, head) the `splits` CTAs of a cluster each take their
+    chunks (`paged_cta_chunks`), compute a fp32 partial output (certified
+    chunks unmasked, the others through `paged_chunk_valid`), and the
+    partials are summed in rank order; rows i >= new_len are zeroed. P rounds
+    to the V operand's dtype (bf16 pages, the new tokens) or, over int8
+    pages, to q's dtype after the V scale is folded in; int8 scores take
+    alpha and then the K scale."""
+    B, S, H, dh = q.shape
+    P, pg = k_pages.shape[:2]
+    maxp = page_table.shape[1]
+    _, rows_per_block, qblocks = paged_query_blocks(S)
+    quant = k_scales is not None
+    inv = 1.0 / scaling_seqlen
+    out = torch.zeros(B, S, H, dh)
+    zero_row = torch.zeros(H, dh)
+    tgt = [0] * B if num_targets is None else num_targets.tolist()
+    for b in range(B):
+        cached, nl = int(cached_len[b]), int(new_lens[b])
+        he = cached + nl - tgt[b]
+        prow = page_table[b].tolist()
+
+        def page_rows(x, c):      # [64, H, ...] of chunk c's cached positions
+            rows = []
+            for pos in range(c * PAGED_CHUNK, (c + 1) * PAGED_CHUNK):
+                j = pos // pg
+                pid = prow[j] if j < maxp else -1
+                rows.append(x[pid, pos % pg].float() if pid >= 0 else torch.zeros_like(x[0, 0],
+                                                                                     dtype=torch.float32))
+            return torch.stack(rows)
+
+        def tail_rows(x, u):      # [64, H, dh] of new tokens 64 u ..; zeros past S
+            t = torch.zeros(PAGED_CHUNK, H, dh)
+            hi = min(S, (u + 1) * PAGED_CHUNK)
+            if hi > u * PAGED_CHUNK:
+                t[:hi - u * PAGED_CHUNK] = x[b, u * PAGED_CHUNK:hi].float()
+            return t
+
+        for qb in range(qblocks):
+            m0 = qb * rows_per_block
+            rows = torch.arange(m0, min(m0 + rows_per_block, S))
+            n_page, n_tail = paged_chunk_counts(cached, nl, S, m0, rows_per_block, maxp, pg)
+            n = n_page + n_tail
+            qf = q[b, m0:m0 + len(rows)].float()                       # [R, H, dh]
+            total = torch.zeros(len(rows), H, dh)
+            for r in range(splits):
+                part = torch.zeros(len(rows), H, dh)
+                for c in range(*paged_cta_chunks(r, splits, n)):
+                    page = c < n_page
+                    if page:
+                        kc, vc = page_rows(k_pages, c), page_rows(v_pages, c)
+                        pdt = q.dtype if quant else v_pages.dtype
+                    else:
+                        kc, vc = tail_rows(new_k, c - n_page), tail_rows(new_v, c - n_page)
+                        pdt = new_v.dtype
+                    x = torch.einsum("rhd,nhd->rhn", qf, kc) * alpha
+                    if page and quant:
+                        x = x * page_rows(k_scales, c).T[None]
+                    p = F.silu(x) * inv
+                    if page and quant:
+                        p = p * page_rows(v_scales, c).T[None]
+                    if not (page and paged_chunk_fully_valid(c * PAGED_CHUNK, cached, he, prow,
+                                                             pg, maxp)):
+                        ok = paged_chunk_valid(rows, c, n_page, cached, nl, he, S, prow, pg, maxp)
+                        p = torch.where(ok[:, None, :], p, torch.zeros(()))
+                    part += torch.einsum("rhn,nhd->rhd", p.to(pdt).float(), vc)
+                total += part
+            total[rows >= nl] = zero_row
+            out[b, m0:m0 + len(rows)] = total
     return out.to(q.dtype)
 
 
@@ -119,7 +316,7 @@ def _check(name, t, dtype, shape, device):
 
 
 _ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 )
 
@@ -154,6 +351,38 @@ def _check_operands(q, k_pages, v_pages, page_table, cached_len, new_k, new_v,
     return B, S, H, dh, P, pg, maxp
 
 
+@functools.lru_cache(maxsize=None)
+def paged_cluster_capacity(device: int, int8: bool, dh: int, consumers: int, H: int,
+                           splits: int) -> int:
+    """Clusters of `splits` CTAs of the bf16 (or int8) kernel instance that
+    card `device` holds at once (a host query, no device value read)."""
+    fn = _lib("paged_cluster_capacity", [ctypes.c_int] * 5)
+    with torch.cuda.device(device):
+        n = fn(int(int8), dh, consumers, H, splits)
+    if n < 0:
+        raise RuntimeError(f"paged attention: cluster capacity query failed: error {n}")
+    return n
+
+
+def paged_launch_plan(q, k_pages, page_table) -> PagedPlan:
+    """The plan the wrapper launches the bf16 and int8 kernels with: from the
+    shapes, and what the card holds (CUDA tensors)."""
+    B, S, H, dh = q.shape
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    int8 = k_pages.dtype == torch.int8
+    return paged_split_plan(
+        B, S, H, page_table.shape[1], k_pages.shape[1],
+        lambda nc, s: paged_cluster_capacity(dev, int8, dh, nc, H, s))
+
+
+def _raise_on(err, name):
+    if err == -4:
+        raise ValueError(f"{name}: the int8 scale stages of this many heads do not fit in "
+                         "the kernel's shared memory")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: error {err}")
+
+
 def _launch_cuda(q, k_pages, v_pages, page_table, cached_len, new_k, new_v,
                  new_lens, num_targets, alpha, scaling_seqlen):
     dev, dt = q.device, q.dtype
@@ -162,6 +391,10 @@ def _launch_cuda(q, k_pages, v_pages, page_table, cached_len, new_k, new_v,
     B, S, H, dh, P, pg, maxp = _check_operands(
         q, k_pages, v_pages, page_table, cached_len, new_k, new_v, new_lens,
         num_targets, dt)
+    # the fp32 scalar kernel takes no plan
+    splits, consumers = 1, 1
+    if dt == torch.bfloat16:
+        splits, consumers = paged_launch_plan(q, k_pages, page_table)[:2]
     fn = _lib()
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
@@ -171,17 +404,16 @@ def _launch_cuda(q, k_pages, v_pages, page_table, cached_len, new_k, new_v,
             v_pages.data_ptr(), page_table.data_ptr(), cached_len.data_ptr(),
             new_k.data_ptr(), new_v.data_ptr(), new_lens.data_ptr(),
             None if num_targets is None else num_targets.data_ptr(),
-            out.data_ptr(), B, S, H, dh, pg, maxp,
+            out.data_ptr(), B, S, H, dh, pg, maxp, P, splits, consumers,
             float(alpha), 1.0 / float(scaling_seqlen), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"paged_hstu_delta_attention launch failed: error {err}")
+    _raise_on(err, "paged_hstu_delta_attention")
     paged_hstu_delta_attention.launches += 1
     return out
 
 
 _ARGTYPES_INT8 = (
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
     + [ctypes.c_void_p]
 )
 
@@ -203,6 +435,7 @@ def paged_hstu_delta_attention_int8(
         num_targets, torch.int8)
     _check("k_scales", k_scales, torch.float32, (P, pg, H), dev)
     _check("v_scales", v_scales, torch.float32, (P, pg, H), dev)
+    plan = paged_launch_plan(q, k_pages, page_table)
     fn = _lib("paged_hstu_delta_attention_int8_launch", _ARGTYPES_INT8)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
@@ -212,12 +445,11 @@ def paged_hstu_delta_attention_int8(
             cached_len.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
             new_lens.data_ptr(),
             None if num_targets is None else num_targets.data_ptr(),
-            out.data_ptr(), B, S, H, dh, pg, maxp,
+            out.data_ptr(), B, S, H, dh, pg, maxp, P, plan.splits, plan.consumers,
             float(alpha), 1.0 / float(scaling_seqlen),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"paged_hstu_delta_attention_int8 launch failed: error {err}")
+    _raise_on(err, "paged_hstu_delta_attention_int8")
     paged_hstu_delta_attention_int8.launches += 1
     return out
 

@@ -96,11 +96,10 @@ def test_wrapper_on_cpu_takes_plain_version():
         assert not got[b, n:].any()
 
 
-def test_int8_pages_not_ported():
-    """The int8 page mode is ported now (tests/test_torch_quantized.py holds
-    it against JAX): int8 pages with unit scales equal the same values as
-    fp32 pages, and pages and scales that do not belong together are
-    refused."""
+def test_int8_pages_need_their_scales():
+    """Int8 pages and scales that do not belong together are refused, and
+    int8 pages with unit scales equal the same values as fp32 pages (the
+    int8 mode is held against JAX in tests/test_torch_quantized.py)."""
     case = _case(4, 1, 2, 1, 8, 4, 4, 1, False)
     case["k_pages"] = np.round(case["k_pages"] * 20).astype(np.float32)
     case["v_pages"] = np.round(case["v_pages"] * 20).astype(np.float32)

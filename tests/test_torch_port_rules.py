@@ -14,7 +14,7 @@ def _port_files():
     pkg = ROOT / "recsys_examples_torch"
     files = sorted(p for p in pkg.rglob("*.py")
                    if "_build" not in p.relative_to(pkg).parts)   # build output
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "paged_study.py"]
 
 
 def _imports(path):

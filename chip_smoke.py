@@ -10,10 +10,11 @@ Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 Phases (any failure exits non-zero):
   1. build   nvcc builds every kernel of the path from csrc/, in parallel;
              no instance spills or passes its library's register ceiling,
-             no setmaxnreg is dropped and ptxas serialises no wgmma chain of
-             the wgmma libraries. (b) the wgmma descriptors, TMA panels
-             and register-A fragments of K1 and K2/K3, one tile pair per head
-             dim, against torch.matmul.
+             no setmaxnreg is dropped and ptxas serialises no wgmma chain.
+             (b) the wgmma descriptors, TMA panels and register-A fragments
+             of K1, K2/K3, K5 (the int8 s8 chain, exact, and V widened) and
+             K7 (cp.async Q, a 3-D TMA chunk), one tile pair per head dim,
+             against torch.matmul.
   2. kernel  paged SiLU delta attention (K6: wgmma, keys split over a
              cluster) against its plain version in bf16 at the serving shapes
              (H=4, dh=256, page 128, B=8, S in {128, 512}, ragged cache, with
@@ -92,9 +93,14 @@ Phases (any failure exits non-zero):
  10. beam    K7 (beam-decode attention) through `beam_decode_attn` against
              its plain version, bf16 and fp32: the full-width decode step (B
              16, W 200, H = Hkv = 8 x 128, S 1025, the context lengths of the
-             seed-0 SID batch, N 1..4 with random ancestry), GQA (Hkv 2), N 0,
-             W 1 and 7, D 64, context lengths 0, 1 and S, every batch row held
-             on its own scale; kernel, plain and bound ms, and for the record
+             seed-0 SID batch, N 1..4 with random ancestry), GQA (Hkv 2, 1;
+             groups of 2, 4 and 8 at W 200), N 0, W 1, 7, 64, 65, 128, 129
+             and 256, D 64 and 32, context lengths 0 (with N 0 and N 3), 1, S
+             and around 32- and 64-key chunk edges, every batch row held on
+             its own scale and every case launched twice, equal bit for bit;
+             phase 11's B 1 step under each split from 1 to the plan's,
+             against the unsplit kernel too; kernel (event and device),
+             plain and bound ms, and for the record
              `scaled_dot_product_attention` over the context keys alone.
  11. sid     `SIDGRModel` at benchmarks/benchmark_beam_decode.py's widths (4
              hierarchies, codebook 256, hidden 1024, 8 layers, 8 x 128, ffn
@@ -118,9 +124,12 @@ Phases (any failure exits non-zero):
              pages of 16 and 32 rows with unset pages, an empty cache, the
              two-consumer instance and scales that do not ride TMA (H 2),
              with phase 2's padded-row and repeat checks; K5
-             against its plain version at phase 5's lengths and mask families
-             and at the full-width training shape, its error against the
-             bf16 forward, and its time beside K1's.
+             against its plain version at phase 5's lengths and mask families,
+             at K1's 128-row CTA edges (c 70 and 130, head dims 32-256, a
+             batch of whole tiles) and at the full-width training shape, each
+             launched twice (equal bit for bit), its error against the bf16
+             forward, its time beside K1's in turns and both bounds (S at the
+             int8 rate, and both products at the bf16 rate).
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -244,19 +253,18 @@ def ptxas_entries(report):
 
 # Most registers of any kernel instance on the path, per library, as built
 # for sm_90a by CUDA 12.8's nvcc (this script's own report); none of them
-# may spill. hstu_attention holds the int8 forward (K5) alone. K1 and K4's
-# forward (hstu_attention_fwd), K2, K3 and K4's dq and dk/dv
-# (hstu_attention_bwd) and K6's bf16 and int8 instances
-# (paged_hstu_attention) launch up to 384 threads for one CTA per SM, so
-# ptxas holds them to 168 at entry; setmaxnreg then moves the producer's
-# registers to the consumer warpgroups (240 each in the forward, 232 in the
-# backward and in K6). K6's fp32-page scalar kernel keeps its own ceiling
+# may spill. K1, K4's forward and K5 (hstu_attention_fwd), K2, K3 and K4's
+# dq and dk/dv (hstu_attention_bwd), K6's bf16 and int8 instances
+# (paged_hstu_attention) and K7's bf16 kernel (beam_decode_attention) launch
+# up to 384 threads for one CTA per SM, so ptxas holds them to 168 at entry;
+# setmaxnreg then moves the producer's registers to the consumer warpgroups
+# (240 each in K1 and K4's forward, 216 in K5 and K7, 232 in the backward
+# and K6). The fp32 scalar kernels of K6 and K7 keep their own ceiling
 # (ENTRY_CEILING).
-REGISTER_CEILING = {"hstu_attention": 242, "hstu_attention_fwd": 168,
-                    "hstu_attention_bwd": 168, "paged_hstu_attention": 168,
-                    "beam_decode_attention": 148}
+REGISTER_CEILING = {"hstu_attention_fwd": 168, "hstu_attention_bwd": 168,
+                    "paged_hstu_attention": 168, "beam_decode_attention": 168}
 ENTRY_CEILING = {"scalar::kernel": 128}
-WGMMA_LIBS = ("hstu_attention_fwd", "hstu_attention_bwd", "paged_hstu_attention")
+WGMMA_LIBS = tuple(REGISTER_CEILING)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -292,38 +300,59 @@ def phase_tile_check():
     MN-major from a thread-written product tile, from the columns w * dh/2.
     K1: the m64n64 score chain K-major, and the output chain with A in
     registers (a matrix put in the accumulator layout and repacked by
-    `acc_to_a`, as K1 repacks P), B MN-major. Products of bf16 values are
-    exact in fp32, so only the order of the sums differs."""
+    `acc_to_a`, as K1 repacks P), B MN-major. K5: the int8 score chain
+    (m64n64k32 s8) on two int8 tiles, which must equal the fp32 product of
+    the widened tiles exactly, and the output chain on the tile's int8 rows
+    widened as K5's widening warps do. K7: a Q tile copied into the panel
+    layout by cp.async and a chunk of K/V loaded through a 3-D map, the
+    score chain K-major and the output chain from the softmax's accumulator
+    layout, B MN-major. Products of bf16 values are exact in fp32, so only
+    the order of the sums differs."""
     import ctypes
 
     from recsys_examples_torch.utils import cuda_build
 
     checks = (("K2/K3", "hstu_attention_bwd", "hstu_bwd_tile_check_launch",
-               ("score (K-major)", "output (MN-major)")),
+               ("score (K-major)", "output (MN-major)"), (32, 64, 128, 256)),
               ("K1", "hstu_attention_fwd", "hstu_fwd_tile_check_launch",
-               ("score (K-major, n64)", "output (register A, MN-major)")))
+               ("score (K-major, n64)", "output (register A, MN-major)"), (32, 64, 128, 256)),
+              ("K5", "hstu_attention_fwd", "hstu_fwd_i8_tile_check_launch",
+               ("score (int8 K-major, m64n64k32, exact)", "output (widened V, MN-major)"),
+               (32, 64, 128, 256)),
+              ("K7", "beam_decode_attention", "beam_tile_check_launch",
+               ("score (cp.async Q, 3-D TMA chunk, K-major)", "output (register A, MN-major)"),
+               (32, 64, 128)))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
-    for kernel, lib, entry, tags in checks:
+    i8 = lambda *sh: torch.randint(-127, 128, sh, generator=gen, device="cuda",
+                                   dtype=torch.int32).to(torch.int8)
+    for kernel, lib, entry, tags, dims in checks:
         fn = getattr(cuda_build.load(lib), entry)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for dh in (32, 64, 128, 256):
-            a, b, pm = r(64, dh), r(64, dh), r(64, 64)
+        for dh in dims:
+            a, pm = r(64, dh), r(64, 64)
+            b = i8(64, dh) if kernel == "K5" else r(64, dh)
+            if kernel == "K5":
+                a = i8(64, dh)
+            x = r(2, 64, dh) if kernel == "K7" else b    # K7 reads its chunk from batch 1
             s = torch.full((64, 64), float("nan"), device="cuda")
             o = torch.full((64, dh), float("nan"), device="cuda")
-            err = fn(a.data_ptr(), b.data_ptr(), pm.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
+            err = fn(a.data_ptr(), x.data_ptr(), pm.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
                      torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             if err:
                 raise SystemExit(f"phase1b {kernel} dh={dh}: launch failed with error {err}")
+            if kernel == "K7":
+                b = x[1]
             for tag, got, want in ((tags[0], s, a.float() @ b.float().T),
                                    (tags[1], o, pm.float() @ b.float())):
                 e = (got - want).abs().max().item()
                 scale = want.abs().max().item()
+                tol = 0.0 if kernel == "K5" and got is s else 1e-4 * scale
                 log(f"phase1b {kernel} dh={dh} {tag}: max_abs_err={e:.3e} "
-                    f"max|ref|={scale:.3e} tol={1e-4 * scale:.3e}")
-                if not e < 1e-4 * scale:
+                    f"max|ref|={scale:.3e} tol={tol:.3e}")
+                if not e <= tol:
                     raise SystemExit(f"phase1b {kernel} dh={dh}: the {tag} chain disagrees "
                                      "with torch.matmul")
 
@@ -402,7 +431,7 @@ def phase_kernel(attn):
     for int8 in (False, True):
         for nc in (1, 2):
             caps = {s: attn.paged_cluster_capacity(dev, int8, dh, nc, H, s)
-                    for s in range(1, attn.PAGED_MAX_SPLITS + 1)}
+                    for s in range(1, attn.MAX_SPLITS + 1)}
             log(f"phase2 cluster capacity int8={int(int8)} consumers={nc} dh={dh} H={H}: "
                 f"{caps}")
             if caps[1] < 1:
@@ -1614,34 +1643,64 @@ def row_rel_l2(a, b):
     return (a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-30)
 
 
-def check_beam_case(name, c, iters=20, sdpa=False):
+BEAM_KERNELS = r"beam_wgmma_kernel|scalar::kernel"
+
+
+def beam_args(c):
+    return [c[k] for k in ("q", "k_ctx", "v_ctx", "ctx_lens", "k_beam", "v_beam", "ancestry")]
+
+
+def beam_errors(got, want):
+    """(largest error, worst row's error over its tolerance, worst batch
+    row's relative L2) against BEAM_LIMITS of want's dtype, and whether all
+    pass."""
+    lim = BEAM_LIMITS[want.dtype]
+    row_err = (got.float() - want.float()).flatten(1).abs().amax(1)
+    row_tol = lim["rtol"] * want.float().flatten(1).abs().amax(1) + lim["atol"]
+    err, worst = row_err.max().item(), (row_err / row_tol).max().item()
+    rel = row_rel_l2(got, want).max().item()
+    ok = worst < 1 and rel < lim["rel_l2"] and bool(torch.isfinite(got).all().item())
+    return err, worst, rel, ok
+
+
+def check_beam_case(name, c, iters=20, sdpa=False, splits=None, timed=True):
+    """K7 against its plain version on one case, launched twice (equal bit
+    for bit); `splits` other than None launches the bf16 kernel with that
+    split instead of the plan's. With `timed`, its event and device times
+    (a wrapper call costs the host 30-60 us: below that the event time
+    measures the host), the plain version's, the bound."""
     from recsys_examples_torch.ops import beam_decode_attention as bda
 
     D = c["q"].shape[-1]
-    args = [c[k] for k in ("q", "k_ctx", "v_ctx", "ctx_lens", "k_beam", "v_beam", "ancestry")]
+    args = beam_args(c)
     scale = D ** -0.5
-    got = bda.beam_decode_attn(*args, sm_scale=scale)
+    run = lambda: bda._launch_cuda(*args, scale, splits=splits)
+    got = run() if splits is not None else bda.beam_decode_attn(*args, sm_scale=scale)
     torch.cuda.synchronize()
     want = bda.beam_decode_attn_ref(*args, sm_scale=scale)
     lim = BEAM_LIMITS[c["q"].dtype]
-    row_err = (got.float() - want.float()).flatten(1).abs().amax(1)
-    row_tol = lim["rtol"] * want.float().flatten(1).abs().amax(1) + lim["atol"]
-    err = row_err.max().item()
-    worst = (row_err / row_tol).max().item()        # of its own tolerance
-    rel = row_rel_l2(got, want).max().item()
-    ok = worst < 1 and rel < lim["rel_l2"] and bool(torch.isfinite(got).all().item())
-    kernel_ms = cuda_time_ms(lambda: bda.beam_decode_attn(*args, sm_scale=scale), iters)
-    plain_ms = cuda_time_ms(lambda: bda.beam_decode_attn_ref(*args, sm_scale=scale), 3)
-    nbytes, flops = beam_work(c)
-    bf16 = c["q"].dtype == torch.bfloat16
-    bound_ms, bound_by = bound_of(nbytes, flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+    err, worst, rel, ok = beam_errors(got, want)
+    same = torch.equal(got, run())
     N = 0 if c["k_beam"] is None else c["k_beam"].shape[1]
     line = (f"phase10 {name}: q={tuple(c['q'].shape)} Hkv={c['k_ctx'].shape[2]} "
-            f"S={c['k_ctx'].shape[1]} N={N} {str(c['q'].dtype)[6:]} max_abs_err={err:.3e} "
-            f"worst row at {worst:.3f} of its tol ({lim['rtol']:g}*max|ref row|+{lim['atol']:g}) "
-            f"worst row rel L2 {rel:.3e} (limit {lim['rel_l2']:g}) kernel_ms={kernel_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            f"S={c['k_ctx'].shape[1]} N={N} {str(c['q'].dtype)[6:]}"
+            + ("" if splits is None else f" splits={splits}")
+            + f" max_abs_err={err:.3e} worst row at {worst:.3f} of its tol "
+            f"({lim['rtol']:g}*max|ref row|+{lim['atol']:g}) worst row rel L2 {rel:.3e} "
+            f"(limit {lim['rel_l2']:g}) repeat equal {same}")
+    res = dict(err=err, out=got)
+    if timed:
+        kernel_ms = median_time_ms(run, iters)
+        dev = device_ms(run, BEAM_KERNELS, iters)
+        plain_ms = cuda_time_ms(lambda: bda.beam_decode_attn_ref(*args, sm_scale=scale), 3)
+        nbytes, flops = beam_work(c)
+        bf16 = c["q"].dtype == torch.bfloat16
+        bound_ms, bound_by = bound_of(nbytes, flops, BF16_FLOPS if bf16 else FP32_FLOPS)
+        line += (f" kernel_ms={kernel_ms:.4f} device_ms={dev:.4f} plain_ms={plain_ms:.4f} "
+                 f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, "
+                 f"{flops / 1e9:.2f} GFLOP)")
+        res.update(kernel_ms=kernel_ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
     if sdpa:   # for the record: the context keys alone, no ancestry-gathered tail
         import torch.nn.functional as F
 
@@ -1650,17 +1709,21 @@ def check_beam_case(name, c, iters=20, sdpa=False):
         keep = (torch.arange(S, device="cuda")[None] < c["ctx_lens"][:, None])[:, None, None]
         f = lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=keep, scale=scale, enable_gqa=q.shape[1] != k.shape[1])
-        line += f" sdpa_over_context_ms={cuda_time_ms(f, iters):.4f}"
+        res["sdpa_ms"] = median_time_ms(f, iters)
+        line += f" sdpa_over_context_ms={res['sdpa_ms']:.4f}"
     log(line)
-    if not ok:
-        raise SystemExit(f"phase10 {name}: kernel disagrees with its plain version")
-    return dict(err=err, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    if not (ok and same):
+        raise SystemExit(f"phase10 {name}: kernel disagrees with its plain version, or two "
+                         "launches differ")
+    return res
 
 
 def phase_beam():
-    """K7 against its plain version over shapes, dtypes and edge cases."""
+    """K7 against its plain version over shapes, dtypes and edge cases; the
+    B 1 step under each split the plan can take, against the unsplit kernel
+    too."""
     from recsys_examples_torch.data.sid_batch import random_sid_batch
+    from recsys_examples_torch.ops import beam_decode_attention as bda
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     B, W, H, D = 16, SID_WIDTHS["beam_width"], SID_WIDTHS["num_heads"], SID_WIDTHS["head_dim"]
@@ -1674,6 +1737,8 @@ def phase_beam():
     res["full_n3_fp32"] = check_beam_case(
         "full_n3_fp32", beam_case(gen, B, W, H, H, D, S, 3, lens, torch.float32), iters=5)
     edge = [0, 1, S, 64, 65, 63, 700, 2]    # no key, one, all, around a chunk edge
+    # around the 32- and 64-key chunk edges
+    edge2 = [31, 32, 33, 127, 128, 129, 96, 97]
     small = {
         "gqa_hkv2": (4, W, H, 2, D, S, 2, lens[:4]),
         "gqa_hkv1_n0": (4, W, H, 1, D, S, 0, lens[:4]),
@@ -1683,19 +1748,55 @@ def phase_beam():
         "w65_n0_edges": (8, 65, 2, 2, D, S, 0, edge),
         "d64": (3, 50, 4, 4, 64, 300, 2, [300, 1, 129]),
         "d32_gqa": (3, 33, 4, 2, 32, 77, 1, [77, 0, 40]),
+        # the row tiles: W at and across a 64-row consumer and a 128-row CTA
+        **{f"w{w}": (4, w, H, H, D, S, 3, lens[8:12]) for w in (64, 65, 128, 129, 256)},
+        # GQA groups of 2, 4 and 8 at W 200 (one CTA's rows span heads)
+        **{f"g{g}_w200": (4, W, H, H // g, D, S, 3, lens[12:16]) for g in (2, 4, 8)},
+        "ctx0_n0": (2, W, H, H, D, S, 0, [0, 0]),
+        "ctx0_n3": (2, W, H, H, D, S, 3, [0, 0]),
+        # no context positions at all: the tail alone, or no key
+        "s0_n2": (2, W, H, 2, D, 0, 2, [0, 5]),
+        "s0_n0": (2, 7, H, H, D, 0, 0, [0, 0]),
+        "edges_32_64": (8, 65, H, H, D, S, 2, edge2),
     }
     for name, (b, w, h, hkv, d, s, n, cl) in small.items():
         for dtype in (torch.bfloat16, torch.float32):
             tag = name + ("" if dtype == torch.bfloat16 else "_fp32")
             res[tag] = check_beam_case(
                 tag, beam_case(gen, b, w, h, hkv, d, s, n, cl, dtype), iters=5)
-    # a row with no key at all is zero, in the kernel and in its plain version
-    from recsys_examples_torch.ops import beam_decode_attention as bda
-
+    # a context broadcast over the batch (batch stride 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "ctx_broadcast" + ("" if dtype == torch.bfloat16 else "_fp32")
+        c = beam_case(gen, 4, W, H, 2, D, S, 2, lens[:4], dtype)
+        c["k_ctx"], c["v_ctx"] = (c[k][:1].expand_as(c[k]) for k in ("k_ctx", "v_ctx"))
+        res[tag] = check_beam_case(tag, c, iters=5)
+    # rows with no key at all are zero, in the kernel and in its plain version
     c = beam_case(gen, 8, 65, 2, 2, D, S, 0, edge)
     out = bda.beam_decode_attn(c["q"], c["k_ctx"], c["v_ctx"], c["ctx_lens"])
     if out[0].any().item() or not out[1].any().item():
         raise SystemExit("phase10: ctx_len 0 with N 0 must give zeros, and only there")
+    if res["ctx0_n0"]["out"].any().item() or res["s0_n0"]["out"].any().item() or \
+            not res["ctx0_n3"]["out"].flatten(0, 2).any(1).all().item():
+        raise SystemExit("phase10: ctx_len 0 (or S 0) must give zeros with N 0, and every "
+                         "row a value with N 3")
+    # the B 1 decode step (phase 11's B 1 call: its history + BOS) under every
+    # split from 1 to the plan's, each against the plain version, the
+    # unsplit kernel and itself
+    lens1 = (random_sid_batch(SEED, 1, SID_HISTORY_ITEMS, 4, 256).history_lengths + 1).tolist()
+    c = beam_case(gen, 1, W, H, H, D, S, 3, lens1)
+    plan = bda.beam_launch_plan(c["q"], c["k_ctx"], 3)
+    res["b1_n3"] = check_beam_case("b1_n3", c)
+    one = check_beam_case("b1_n3", c, splits=1, timed=False)["out"]
+    for k in range(1, plan.splits + 1):
+        r = check_beam_case("b1_n3", c, splits=k, timed=k == plan.splits)
+        err, worst, rel, ok = beam_errors(r["out"], one)
+        log(f"phase10 b1_n3 splits={k} against the unsplit kernel: max_abs_err={err:.3e} "
+            f"worst row at {worst:.3f} of its tol, rel L2 {rel:.3e}")
+        if not ok:
+            raise SystemExit(f"phase10 b1_n3: split {k} disagrees with the unsplit kernel")
+    log(f"phase10 b1_n3 plan: splits {plan.splits}, tiles {plan.tiles}, grid {plan.grid}")
+    for r in res.values():
+        r.pop("out", None)
     return res
 
 
@@ -1810,7 +1911,7 @@ def phase_sid():
             f"generate_beam_decode_ms={kv_ms:.2f} (median of 5) K7 launches per call="
             f"{launches} best score {scores[0, 0].item():.4f} worst {scores[0, -1].item():.4f}")
         profile_call(run, f"phase11 B={B} profile of one generate_beam_decode", top=12, groups={
-            "K7": ("tc::kernel", "scalar::kernel"),
+            "K7": ("beam_wgmma_kernel", "scalar::kernel"),
             "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
             "sort": ("sort", "radix"),
         })
@@ -2063,12 +2164,16 @@ def phase_quant_paged(attn):
     return res, launches
 
 
+INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
+
+
 def phase_quant_fwd(main_batch):
-    """K5 at phase 5's lengths and mask families and at the full-width
-    training shape, against its plain version, the bf16 forward and K1."""
+    """K5 at phase 5's lengths and mask families, at K1's 128-row CTA edges
+    (c 70 and 130, head dims 32-256, a batch of whole tiles) and at the
+    full-width training shape, against its plain version (each case launched
+    twice, equal bit for bit), the bf16 forward and K1, with both bounds."""
     from recsys_examples_torch.ops import hstu_attention as ha
-    from recsys_examples_torch.ops.hstu_attention_ref import (
-        hstu_mha_int8_reference, hstu_mha_reference)
+    from recsys_examples_torch.ops.hstu_attention_ref import hstu_mha_int8_reference
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     i32 = lambda x: None if x is None else torch.tensor(x, dtype=torch.int32, device="cuda")
@@ -2077,12 +2182,20 @@ def phase_quant_fwd(main_batch):
         q, k, v, _, offsets = attention_operands(gen, lengths, H, dh, pad=0)
         return (q, k, v), [ha.quantize_per_tensor(x) for x in (q, k, v)], offsets
 
-    def check(tag, got, want, total):
+    def check(tag, lengths, H, dh, N, alpha, **mask):
+        _, ((q8, sq), (k8, sk), (v8, sv)), offsets = quantized(lengths, H, dh)
+        run = lambda: ha.hstu_attn_varlen_quantized_calibrated(
+            q8, k8, v8, sq, sk, sv, offsets, N, alpha=alpha, **mask)
+        got = run()
+        want = hstu_mha_int8_reference(N, alpha, q8, k8, v8, sq, sk, sv, offsets, **mask)
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
-        log(f"phase13 fwd_int8 {tag}: max_abs_err={err:.3e} max|ref|={ref:.3e} "
-            f"tol={2e-2 * ref + 1e-3:.3e} (2e-2*max|ref|+1e-3)")
-        if not within(err, ref) or bool(got[total:].any()) or got.dtype != torch.bfloat16:
+        same = torch.equal(got, run())
+        log(f"phase13 fwd_int8 {tag}: lengths={lengths} H={H} dh={dh} max_abs_err={err:.3e} "
+            f"max|ref|={ref:.3e} tol={2e-2 * ref + 1e-3:.3e} (2e-2*max|ref|+1e-3) "
+            f"repeat equal {same}")
+        if not (within(err, ref) and same) or bool(got[sum(lengths):].any()) \
+                or got.dtype != torch.bfloat16:
             raise SystemExit(f"phase13: the int8 forward disagrees at {tag}")
         return err
 
@@ -2095,20 +2208,22 @@ def phase_quant_fwd(main_batch):
         "window64_minfull": (dict(max_attn_len=64, min_full_attn_seq_len=128), None, tgt),
         "noncausal": (dict(causal=False), None, None),
     }
-    errs = []
-    for name, (kw, c, t) in cases.items():
-        _, ((q8, sq), (k8, sk), (v8, sv)), offsets = quantized(lengths, 4, 256)
-        mask = dict(num_contextuals=i32(c), num_targets=i32(t), **kw)
-        got = ha.hstu_attn_varlen_quantized_calibrated(
-            q8, k8, v8, sq, sk, sv, offsets, 2048, alpha=1 / 16, **mask)
-        want = hstu_mha_int8_reference(2048, 1 / 16, q8, k8, v8, sq, sk, sv, offsets, **mask)
-        errs.append(check(name, got, want, sum(lengths)))
-    _, ((q8, sq), (k8, sk), (v8, sv)), offsets = quantized([77, 0, 300, 5], 2, 64)
-    mask = dict(num_contextuals=i32([2, 0, 1, 0]), num_targets=i32([9, 0, 31, 2]),
-                target_group_size=3)
-    errs.append(check("odd_h2_dh64", ha.hstu_attn_varlen_quantized_calibrated(
-        q8, k8, v8, sq, sk, sv, offsets, 320, alpha=0.125, **mask),
-        hstu_mha_int8_reference(320, 0.125, q8, k8, v8, sq, sk, sv, offsets, **mask), 382))
+    errs = [check(name, lengths, 4, 256, 2048, 1 / 16, num_contextuals=i32(c),
+                  num_targets=i32(t), **kw) for name, (kw, c, t) in cases.items()]
+    errs.append(check("odd_h2_dh64", [77, 0, 300, 5], 2, 64, 320, 0.125,
+                      num_contextuals=i32([2, 0, 1, 0]), num_targets=i32([9, 0, 31, 2]),
+                      target_group_size=3))
+    # K1's 128-row CTA: lengths at its edges, consumer 1 without rows,
+    # contextual rows across the consumer boundary (c 70) and past the CTA
+    # (c 130), with targets; every head dim; a batch of whole tiles (the
+    # interior tiles skip the mask)
+    for dh in (32, 64, 128, 256):
+        errs.append(check(f"cta_edges_dh{dh}", [127, 128, 129, 257, 191, 64, 1], 2, dh, 320,
+                          dh ** -0.5))
+        errs.append(check(f"ctx70_130_dh{dh}", [300, 200, 260, 129], 2, dh, 320, dh ** -0.5,
+                          num_contextuals=i32([70, 130, 130, 70]), num_targets=i32([9, 0, 31, 2]),
+                          target_group_size=2))
+    errs.append(check("whole_tiles", [512, 256, 1024, 128], 4, 256, 1024, 1 / 16))
 
     # the full-width training shape (phase 6b's): the drive, then the checks
     lengths = [int(n) for n in seqlens_of(main_batch)]
@@ -2128,8 +2243,10 @@ def phase_quant_fwd(main_batch):
     k1 = lambda: ha.hstu_attn_fwd_cuda(q, k, v, o32, nc, None, opts)
     k5 = lambda: ha.hstu_attn_varlen_quantized_calibrated(
         q8, k8, v8, sq, sk, sv, offsets, N, num_contextuals=nc, alpha=alpha)
-    t = [cuda_time_ms(k1, 3), cuda_time_ms(k5, 3), cuda_time_ms(k5, 3), cuda_time_ms(k1, 3)]
+    t = [median_time_ms(k1, 3), median_time_ms(k5, 3), median_time_ms(k5, 3),
+         median_time_ms(k1, 3)]
     ms, ms_k1 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    same = torch.equal(got, k5())
     full = k1()
     err = ref = quant_err = full_ref = plain_ms = 0.0
     for b, n in enumerate(lengths):     # the plain version, sequence by sequence
@@ -2147,16 +2264,23 @@ def phase_quant_fwd(main_batch):
     work = jagged_attention_work(lengths, H, dh, opts, ctx=[N_CTX] * len(lengths))
     T = sum(lengths)
     nbytes = 3 * T * H * dh + T * H * dh * 2      # int8 q, k, v read; bf16 out written
-    bound_ms, bound_by = bound_of(nbytes, work["fwd"][1])
+    flops = work["fwd"][1]                        # S and P V, half each
+    bf16_bound = bound_of(nbytes, flops)
+    # S on int8 operands at the int8 rate, P V at the bf16 rate
+    ops_ms = (flops / 2 / INT8_OPS + flops / 2 / BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
     log(f"phase13 fwd_int8 main-shape: T={T} max_abs_err={err:.3e} max|ref|={ref:.3e} "
-        f"tol={2e-2 * ref + 1e-3:.3e}; against the bf16 forward on the unquantized operands "
-        f"{quant_err:.3e} of max {full_ref:.3e}; kernel_ms={ms:.4f} K1_ms={ms_k1:.4f} (in turns) "
-        f"plain_ms(per sequence)={plain_ms:.2f} bound_ms={bound_ms:.4f} ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB, {work['fwd'][1] / 1e9:.2f} GFLOP)")
-    if not within(err, ref):
+        f"tol={2e-2 * ref + 1e-3:.3e} repeat equal {same}; against the bf16 forward on the "
+        f"unquantized operands {quant_err:.3e} of max {full_ref:.3e}; kernel_ms={ms:.4f} "
+        f"K1_ms={ms_k1:.4f} (in turns) plain_ms(per sequence)={plain_ms:.2f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 2e9:.2f} GOP "
+        f"int8 S + {flops / 2e9:.2f} GFLOP bf16 P V) bound_ms_at_bf16_rate="
+        f"{bf16_bound[0]:.4f}")
+    if not (within(err, ref) and same):
         raise SystemExit("phase13: the int8 forward disagrees at the main shape")
     return dict(err=max(errs + [err]), kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, launches=launches, k1_ms=ms_k1)
+                bound_by=bound_by, bf16_bound_ms=bf16_bound[0], launches=launches, k1_ms=ms_k1)
 
 
 def main():
@@ -2199,6 +2323,7 @@ def main():
         "launches": res["serve"]["launches"],     # phase 3's main path (not phase 4's)
         "max_abs_err": max(r["err"] for r in res["paged"].values()),
         "ms": warm["kernel_ms"],
+        "device_ms": warm["device_ms"],            # torch.profiler, per launch
         "plain_ms": warm["plain_ms"],
         "bound_ms": warm["bound_ms"],
         "bound_by": warm["bound_by"],
@@ -2253,6 +2378,7 @@ def main():
         "launches": res["sid"][16]["launches"],     # one generate_beam_decode, B 16
         "max_abs_err": max(r["err"] for r in res["beam"].values()),
         "ms": step["kernel_ms"],
+        "device_ms": step["device_ms"],             # torch.profiler, per launch
         "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"],
@@ -2262,7 +2388,7 @@ def main():
     kernels.append({
         "name": "hstu_attn_fwd_int8",
         "route": "cuda",
-        "source": "recsys_examples_torch/csrc/hstu_attention.cu",
+        "source": "recsys_examples_torch/csrc/hstu_attention_fwd.cu",
         "replaces": "recsys_examples_tpu/ops/pallas/hstu_attention.py:1541",
         "launches": fwd8["launches"],               # the full-width call, phase 13
         "max_abs_err": fwd8["err"],
@@ -2281,6 +2407,7 @@ def main():
         "launches": paged_int8_launches,            # the eight points, phase 13
         "max_abs_err": max(r["err"] for r in res["paged_int8"].values()),
         "ms": paged8["kernel_ms"],
+        "device_ms": paged8["device_ms"],           # torch.profiler, per launch
         "plain_ms": paged8["plain_ms"],
         "bound_ms": paged8["bound_ms"],
         "bound_by": paged8["bound_by"],

@@ -1,19 +1,24 @@
 // The forward of the jagged SiLU (HSTU) attention for Hopper (sm_90a): K1,
-// and K4's forward (K1 with a dense relative attention bias) as its RAB =
-// true instance, on wgmma with TMA-fed tiles and P kept in registers.
+// K4's forward (K1 with a dense relative attention bias) as its RAB = true
+// instance, and K5 (K1 on int8 q, k, v) as its I8 = true instance, on wgmma
+// with TMA-fed tiles and P kept in registers.
 //
 // Replaces the TPU kernel `_fwd_kernel` (:235) of
 // recsys_examples_tpu/ops/pallas/hstu_attention.py, launched by
-// `_hstu_fwd_impl` (:1092, pallas_call :1173), and its `has_rab` branch
-// (:391-392) reached through `hstu_attn_varlen_rab` (:1482). For each
+// `_hstu_fwd_impl` (:1092, pallas_call :1173), its `has_rab` branch
+// (:391-392) reached through `hstu_attn_varlen_rab` (:1482), and its
+// `quantized` branch (:375-384, :421-422) reached through
+// `hstu_attn_varlen_quantized_calibrated` (:1541). For each
 // sequence b of the packed [T, H, D] bf16 tensors (rows seq_offsets[b] ..
 // seq_offsets[b + 1]) and each head:
 //   S = alpha q k^T (+ rab) (fp32),  P = silu(S) / scaling * mask,  out = P(bf16) v
 // with fp32 sums, a bf16 output and the mask of `_compute_mask`
 // (hstu_mask.cuh); rab is [B|1, H|1, Nq, Nk], fp32 or bf16, positions local
-// to the sequence. Rows that no sequence owns are never written: the caller
-// zero-fills the output. Each CTA owns its output rows (no atomics), so both
-// instances are deterministic.
+// to the sequence. K5 takes int8 q, k, v with per-tensor scales: alpha
+// holds alpha q_scale k_scale, and out = bf16(v_scale P(bf16) v8). Rows that
+// no sequence owns are never written: the caller zero-fills the output.
+// Each CTA owns its output rows (no atomics), so every instance is
+// deterministic.
 //
 // What bounds it on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s): operations.
 // Every valid (query, key) pair costs two products (S, P v) of 2 D FLOPs: at
@@ -71,10 +76,29 @@
 //
 // Shared memory at D = 256: Q 64 KB and 2 x (K + V) 128 KB, 192 KB of 227;
 // with the bias 224 KB.
+//
+// K5, the int8 instance. Its score is a product of int8 values: each term
+// is at most 127^2 in size, so at D <= 256 every partial sum stays below 2^24
+// and an fp32 sum of the terms is exact in any order. Q and K arrive as int8
+// tiles by TMA over int8 [T, H * D] maps (a 128-byte swizzle panel holds 128
+// int8 columns: `Tile8`), and S = Q K^T runs as one m64n64k32 s8.s8.s32
+// chain, converted to fp32: the same S, bit for bit, as the TPU kernel's
+// product of the values widened to bf16, at twice the bf16 rate (both
+// bounds are in PERF.md). P is bf16, so V is widened: the producer warp
+// loads V's int8 rows by TMA into a ring of its own, and the producer's
+// warpgroup's other three warps (96 threads) widen each arrived tile into
+// the swizzled bf16 V stage that K1 reads (two integer ops and one bf16x2
+// subtraction a pair of values, exact), then arrive on the consumers' full
+// barrier: one producer a ring. The consumers give up K1's second score sum
+// (the int32 chain is exact), so setmaxnreg gives them 216 registers and
+// the producer's warpgroup 72. Shared memory at D = 256: Q 32 KB, the K
+// ring 32 KB, the int8 V ring 32 KB and the bf16 V stages 64 KB: 160 KB.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hstu_mask.cuh"
 #include "sm90_wgmma.cuh"
@@ -84,12 +108,26 @@ namespace {
 using sm90::bf16;
 using sm90::load_tile;
 using sm90::Tile;
+using sm90::Tile8;
 
 constexpr int BT = sm90::TILE_ROWS;       // rows of every tile (64)
 constexpr int NC = 2;                     // consumer warpgroups
 constexpr int NTHREADS = 128 * (NC + 1);  // + the producer's warpgroup
 constexpr int STAGES = 2;                 // of the K ring and of the V ring
 constexpr int TURN = 1;                   // named barrier TURN + w: consumer w's turn
+constexpr int WIDENED = TURN + NC;        // named barrier of K5's widening warps
+
+// setmaxnreg's split of the 168 registers a thread holds at entry: K1 and
+// K4 give the consumers (O's DH / 2 sums, two score sums, P) 240 and the
+// producer warp 24; K5's consumers hold one score sum, and its producer's
+// warpgroup widens V.
+template <bool I8>
+struct Roles {
+  static constexpr int WIDEN = I8 ? 96 : 0;   // widening threads
+  static constexpr int CONSUMER = I8 ? 216 : 240;
+  static constexpr int PRODUCER = I8 ? 72 : 24;
+  static_assert(NC * 128 * CONSUMER + 128 * PRODUCER <= 168 * NTHREADS, "");
+};
 
 // The product chains K1 shares with K6 (sm90_wgmma.cuh).
 using sm90::Out;
@@ -235,30 +273,71 @@ __device__ __forceinline__ void store_out(bf16* dst, size_t ld,
 }
 
 // Shared memory: Q's two tiles, the K and V rings, (RAB) the consumers' bias
-// slots, then the rings' barriers and Q's; 1024 bytes of slack align the
-// base.
-template <int DH, bool RAB>
-constexpr size_t smem_bytes() {
-  return 1024 + (size_t)(NC + 2 * STAGES) * Tile<DH>::BYTES + (RAB ? NC * SLOT : 0) +
-         2 * sizeof(sm90::Ring<STAGES>) + 8;
+// slots, (I8) the ring of V's int8 rows, then the rings' barriers and Q's;
+// 1024 bytes of slack align the base. I8: Q and K are int8 tiles (`Tile8`).
+template <int DH, bool RAB, bool I8>
+struct Smem {
+  using QK = typename std::conditional<I8, Tile8<DH>, Tile<DH>>::type;
+  static constexpr int RAW = I8 ? BT * DH : 0;   // bytes of V's int8 rows
+  static constexpr int K = NC * QK::BYTES;        // offsets from the aligned base
+  static constexpr int V = K + STAGES * QK::BYTES;
+  static constexpr int BIAS = V + STAGES * Tile<DH>::BYTES;
+  static constexpr int R = BIAS + (RAB ? NC * SLOT : 0);
+  static constexpr int BARS = R + STAGES * RAW;
+  static constexpr size_t bytes = 1024 + BARS + 3 * sizeof(sm90::Ring<STAGES>) + 8;
+};
+
+// K5's widening warps (`w` the thread's index among them) feed the bf16 V
+// ring, use by use: each tile's int8 rows from the int8 ring, widened into
+// the swizzled bf16 stage, after which they free the int8 stage and arrive
+// on the consumers' full barrier.
+template <int DH>
+__device__ __forceinline__ void widen_v(unsigned char* sR, unsigned char* sV,
+                                        sm90::Ring<STAGES>* rring, sm90::Ring<STAGES>* vring,
+                                        int n_tiles, int w) {
+  constexpr int VPR = DH / 16;   // 16-byte int8 vectors a row
+  constexpr int WIDEN = Roles<true>::WIDEN;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES;
+    sm90::mbar_wait(&vring->empty[st], ((i / STAGES) & 1) ^ 1);   // the bf16 stage is free
+    rring->consumer_wait(i);
+    const uint32_t src = sm90::smem_u32(sR + st * BT * DH);
+    const uint32_t dst = sm90::smem_u32(sV + st * Tile<DH>::BYTES);
+    for (uint32_t v = w; v < BT * VPR; v += WIDEN) {
+      const uint32_t r = v / VPR, c16 = (v % VPR) * 16;
+      uint32_t o[8];
+      sm90::widen16(o, sm90::ld_shared4(src + r * DH + c16));
+      sm90::st_shared4(dst + sm90::tile_off<DH>(r, c16), make_uint4(o[0], o[1], o[2], o[3]));
+      sm90::st_shared4(dst + sm90::tile_off<DH>(r, c16 + 8), make_uint4(o[4], o[5], o[6], o[7]));
+    }
+    rring->consumer_release(i);   // the int8 stage is read
+    sm90::fence_async_smem();      // the widened tile, for wgmma
+    sm90::named_sync<WIDEN>(WIDENED);
+    if (w == 0) sm90::mbar_arrive(&vring->full[st]);
+  }
 }
 
-// ------------------------------------------------------------ K1 (RAB: K4's forward)
-template <int DH, bool RAB>
+// ------------------------------------------------------------ K1 (RAB: K4's forward; I8: K5)
+template <int DH, bool RAB, bool I8>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out, Params p,
-                 Rab rab) {
+                 Rab rab, float v_scale) {
   using L = Tile<DH>;
   using O = Out<DH>;
+  using S = Smem<DH, RAB, I8>;
+  using QK = typename S::QK;
+  using R = Roles<I8>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = sm90::align1024(smem_raw);     // [NC] tiles: consumer w's rows
-  unsigned char* sK = sQ + NC * L::BYTES;            // [STAGES] tiles
-  unsigned char* sV = sK + STAGES * L::BYTES;        // [STAGES] tiles
-  unsigned char* sB = sV + STAGES * L::BYTES;        // RAB: [NC] consumers' bias slots
-  auto* kring = reinterpret_cast<sm90::Ring<STAGES>*>(sB + (RAB ? NC * SLOT : 0));
+  unsigned char* sK = sQ + S::K;                     // [STAGES] tiles
+  unsigned char* sV = sQ + S::V;                     // [STAGES] tiles (bf16)
+  unsigned char* sB = sQ + S::BIAS;                  // RAB: [NC] consumers' bias slots
+  unsigned char* sR = sQ + S::R;                     // I8: [STAGES] V's int8 rows
+  auto* kring = reinterpret_cast<sm90::Ring<STAGES>*>(sQ + S::BARS);
   auto* vring = kring + 1;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vring + 1);
+  auto* rring = kring + 2;                           // I8: V's int8 rows
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kring + 3);
 
   const Seq s(p, blockIdx.z);
   const int m0 = (gridDim.x - 1 - blockIdx.x) * NC * BT;   // the last rows walk furthest
@@ -268,33 +347,48 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
   if (threadIdx.x == 0) {
     kring->init(NC * 128);
     vring->init(NC * 128);
+    if (I8) rring->init(R::WIDEN);
     sm90::mbar_init(q_full, 1);
     sm90::mbar_init_fence();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == NC) {   // producer
-    sm90::setmaxnreg_dec<24>();
-    if (threadIdx.x == NC * 128) {
+  if (wg == NC) {   // producer (I8: and the wideners)
+    sm90::setmaxnreg_dec<R::PRODUCER>();
+    const int pt = threadIdx.x - NC * 128;
+    if (pt == 0) {
       const int nq = m0 + BT < s.n ? NC : 1;   // consumer 1's rows, if it has any
-      sm90::mbar_expect_tx(q_full, nq * L::BYTES);
-      for (int w = 0; w < nq; ++w)
-        load_tile<DH>(sQ + w * L::BYTES, &mq, col, s.off + m0 + w * BT, q_full);
+      sm90::mbar_expect_tx(q_full, nq * QK::BYTES);
+      for (int w = 0; w < nq; ++w) {
+        if constexpr (I8)
+          sm90::load_tile8<DH>(sQ + w * QK::BYTES, &mq, col, s.off + m0 + w * BT, q_full);
+        else
+          load_tile<DH>(sQ + w * QK::BYTES, &mq, col, s.off + m0 + w * BT, q_full);
+      }
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % STAGES, row = s.off + i * BT;
-        kring->producer_acquire(i, L::BYTES);
-        load_tile<DH>(sK + st * L::BYTES, &mk, col, row, &kring->full[st]);
-        vring->producer_acquire(i, L::BYTES);
-        load_tile<DH>(sV + st * L::BYTES, &mv, col, row, &vring->full[st]);
+        kring->producer_acquire(i, QK::BYTES);
+        if constexpr (I8) {
+          sm90::load_tile8<DH>(sK + st * QK::BYTES, &mk, col, row, &kring->full[st]);
+          rring->producer_acquire(i, S::RAW);
+          sm90::tma_load_2d(sR + st * S::RAW, &mv, col, row, &rring->full[st]);
+        } else {
+          load_tile<DH>(sK + st * L::BYTES, &mk, col, row, &kring->full[st]);
+          vring->producer_acquire(i, L::BYTES);
+          load_tile<DH>(sV + st * L::BYTES, &mv, col, row, &vring->full[st]);
+        }
       }
     }
+    if constexpr (I8) {
+      if (pt >= 32) widen_v<DH>(sR, sV, rring, vring, n_tiles, pt - 32);
+    }
   } else {          // consumers
-    sm90::setmaxnreg_inc<240>();
+    sm90::setmaxnreg_inc<R::CONSUMER>();
     const int t = threadIdx.x % 128;
     const int q0 = m0 + wg * BT;
     const int mine = s.fwd_tiles(p, q0);   // the key tiles this consumer computes
-    const unsigned char* q_s = sQ + wg * L::BYTES;
+    const unsigned char* q_s = sQ + wg * QK::BYTES;
     const uint32_t slot = sm90::smem_u32(sB + wg * SLOT);
     if constexpr (RAB) fetch_bias(rab, slot, s.n, q0, 0, t, mine > 0);   // behind Q's load
     float o[O::NCH][O::CH / 2];
@@ -304,7 +398,8 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       for (int i = 0; i < O::CH / 2; ++i) o[j][i] = 0.f;
     uint32_t pa[16];   // P, as A fragments
     float sc[32], odd[32];
-    const auto k_s = [&](int i) { return sK + (i % STAGES) * L::BYTES; };
+    int si[32];        // I8: the int32 score
+    const auto k_s = [&](int i) { return sK + (i % STAGES) * QK::BYTES; };
     const auto v_s = [&](int i) { return sV + (i % STAGES) * L::BYTES; };
     // Two turns a key tile: S_i, then P_i V_i. Consumer 0 goes first, each
     // hands the turn on after issuing, and consumer 0 takes one more turn at
@@ -320,15 +415,24 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       kring->consumer_wait(i);
       turn();
       sm90::wgmma_fence();
-      score_chain<DH>(sc, odd, q_s, k_s(i));
+      if constexpr (I8)
+        sm90::score_chain8<DH>(si, q_s, k_s(i));
+      else
+        score_chain<DH>(sc, odd, q_s, k_s(i));
       sm90::wgmma_commit();
       pass();
       sm90::wgmma_wait<0>();
-      sm90::fence_regs(sc);
-      sm90::fence_regs(odd);
-      kring->consumer_release(i);
+      if constexpr (I8) {
+        sm90::fence_regs(si);
 #pragma unroll
-      for (int e = 0; e < 32; ++e) sc[e] += odd[e];
+        for (int e = 0; e < 32; ++e) sc[e] = (float)si[e];   // exact: |S| < 2^24
+      } else {
+        sm90::fence_regs(sc);
+        sm90::fence_regs(odd);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] += odd[e];
+      }
+      kring->consumer_release(i);
       if constexpr (RAB) {   // the warp's copies of this tile's bias landed
         sm90::cp_async_wait<0>();
         __syncwarp();
@@ -363,6 +467,12 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       pass();
     }
     if (wg == 0) turn();
+    if constexpr (I8) {
+#pragma unroll
+      for (int j = 0; j < O::NCH; ++j)
+#pragma unroll
+        for (int e = 0; e < O::CH / 2; ++e) o[j][e] *= v_scale;
+    }
     const size_t ld = (size_t)p.H * DH;
     store_out<DH>(out + (size_t)s.off * ld + col, ld, o, q0, s.n, t);
   }
@@ -426,6 +536,76 @@ tile_check_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant_
       o_out[sm90::acc_row(t, i) * DH + j * O::CH + sm90::acc_col(t, i)] = o[j][i];
 }
 
+// The same for K5's two chains: s = a b^T from two int8 tiles (`Tile8`,
+// the s8 chain), exact in int32; and o = p b with b's int8 rows loaded
+// without swizzle and widened by the 128 threads into a bf16 tile, as K5's
+// widening warps do, then read MN-major.
+template <int DH>
+__global__ void __launch_bounds__(128)
+tile_check_i8_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                     const __grid_constant__ CUtensorMap mr, const bf16* __restrict__ pg,
+                     float* __restrict__ s_out, float* __restrict__ o_out) {
+  using L8 = Tile8<DH>;
+  using L = Tile<DH>;
+  using O = Out<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sA = sm90::align1024(smem_raw);
+  unsigned char* sB = sA + L8::BYTES;
+  unsigned char* sW = sB + L8::BYTES;        // b widened
+  unsigned char* sR = sW + L::BYTES;         // b's int8 rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sR + BT * DH);
+  const int t = threadIdx.x;
+  if (t == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0) {
+    sm90::mbar_expect_tx(bar, 2 * L8::BYTES + BT * DH);
+    sm90::load_tile8<DH>(sA, &ma, 0, 0, bar);
+    sm90::load_tile8<DH>(sB, &mb, 0, 0, bar);
+    sm90::tma_load_2d(sR, &mr, 0, 0, bar);
+  }
+  float pf[32], o[O::NCH][O::CH / 2];
+  int si[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    pf[i] = __bfloat162float(pg[sm90::acc_row(t, i) * BT + sm90::acc_col(t, i)]);
+  uint32_t pa[16];
+  sm90::acc_to_a(pa, pf);
+#pragma unroll
+  for (int j = 0; j < O::NCH; ++j)
+#pragma unroll
+    for (int i = 0; i < O::CH / 2; ++i) o[j][i] = 0.f;
+  sm90::mbar_wait(bar, 0);
+  for (uint32_t v = t; v < BT * DH / 16; v += 128) {
+    const uint32_t r = v / (DH / 16), c16 = (v % (DH / 16)) * 16;
+    uint32_t w[8];
+    sm90::widen16(w, sm90::ld_shared4(sm90::smem_u32(sR) + r * DH + c16));
+    const uint32_t d = sm90::smem_u32(sW);
+    sm90::st_shared4(d + sm90::tile_off<DH>(r, c16), make_uint4(w[0], w[1], w[2], w[3]));
+    sm90::st_shared4(d + sm90::tile_off<DH>(r, c16 + 8), make_uint4(w[4], w[5], w[6], w[7]));
+  }
+  sm90::fence_async_smem();
+  __syncthreads();
+  fence_out<DH>(o);
+  sm90::wgmma_fence();
+  sm90::score_chain8<DH>(si, sA, sB);
+  pv_chain<DH>(o, pa, sW);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(si);
+  fence_out<DH>(o);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s_out[sm90::acc_row(t, i) * BT + sm90::acc_col(t, i)] = (float)si[i];
+#pragma unroll
+  for (int j = 0; j < O::NCH; ++j)
+#pragma unroll
+    for (int i = 0; i < O::CH / 2; ++i)
+      o_out[sm90::acc_row(t, i) * DH + j * O::CH + sm90::acc_col(t, i)] = o[j][i];
+}
+
 #define FWD_DISPATCH_DH(dh, CALL)                                     \
   switch (dh) {                                                       \
     case 32: { constexpr int DH = 32; return CALL; }                  \
@@ -435,12 +615,13 @@ tile_check_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant_
     default: return -1;                                               \
   }
 
-// K1 and K4's forward.
-template <bool RAB>
+// K1, K4's forward (RAB) and K5 (I8: int8 q, k, v).
+template <bool RAB, bool I8>
 int fwd_launch(const void* q, const void* k, const void* v, void* out, const int* seq_offsets,
                const int* num_contextuals, const int* num_targets, int T, int B, int H, int dh,
                int max_seqlen, float alpha, float inv_scaling, int causal, int target_group_size,
-               int max_attn_len, int min_full_attn_seq_len, const Rab& rab, void* stream) {
+               int max_attn_len, int min_full_attn_seq_len, const Rab& rab, float v_scale,
+               void* stream) {
   if (target_group_size < 1 || (RAB && !rab.ptr)) return -1;
   if (T == 0 || B == 0 || H == 0 || max_seqlen == 0) return 0;
   if (dh != 32 && dh != 64 && dh != 128 && dh != 256) return -1;
@@ -448,12 +629,22 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out, const int
                  target_group_size, max_attn_len, min_full_attn_seq_len};
   CUtensorMap m[3];
   const void* const x[3] = {q, k, v};
-  if (const int err = sm90::make_row_maps(m, x, T, H, dh)) return err;
+  int err = 0;
+  if (I8) {   // q and k in swizzled int8 panels; v's rows whole, unswizzled (widened)
+    const uint64_t cols = (uint64_t)H * dh;
+    err = sm90::make_row_map_i8(&m[0], q, T, H, dh);
+    if (!err) err = sm90::make_row_map_i8(&m[1], k, T, H, dh);
+    if (!err) err = sm90::make_map(&m[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, v, T, cols, cols, BT,
+                                   dh, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    err = sm90::make_row_maps(m, x, T, H, dh);
+  }
+  if (err) return err;
   const dim3 grid((max_seqlen + NC * BT - 1) / (NC * BT), H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* O = static_cast<bf16*>(out);
-  FWD_DISPATCH_DH(dh, sm90::launch(fwd_wgmma_kernel<DH, RAB>, smem_bytes<DH, RAB>(), grid,
-                                   NTHREADS, st, m[0], m[1], m[2], O, p, rab))
+  FWD_DISPATCH_DH(dh, sm90::launch(fwd_wgmma_kernel<DH, RAB, I8>, Smem<DH, RAB, I8>::bytes, grid,
+                                   NTHREADS, st, m[0], m[1], m[2], O, p, rab, v_scale))
 }
 
 }  // namespace
@@ -470,9 +661,10 @@ extern "C" int hstu_attn_fwd_launch(const void* q, const void* k, const void* v,
                                     int max_seqlen, float alpha, float inv_scaling, int causal,
                                     int target_group_size, int max_attn_len,
                                     int min_full_attn_seq_len, void* stream) {
-  return fwd_launch<false>(q, k, v, out, seq_offsets, num_contextuals, num_targets, T, B, H, dh,
-                           max_seqlen, alpha, inv_scaling, causal, target_group_size,
-                           max_attn_len, min_full_attn_seq_len, Rab{}, stream);
+  return fwd_launch<false, false>(q, k, v, out, seq_offsets, num_contextuals, num_targets, T, B,
+                                  H, dh, max_seqlen, alpha, inv_scaling, causal,
+                                  target_group_size, max_attn_len, min_full_attn_seq_len, Rab{},
+                                  1.f, stream);
 }
 
 // K4's forward: besides, the fp32 or bf16 bias `rab` [rb, rh, nq, nk] with
@@ -488,9 +680,23 @@ extern "C" int hstu_attn_rab_fwd_launch(const void* q, const void* k, const void
                                         long long rab_sb, long long rab_sh, int rab_nk,
                                         int rab_is_bf16, int drab_atomic, void* stream) {
   const Rab r{rab, nullptr, rab_sb, rab_sh, rab_nk, rab_is_bf16, 0};
-  return fwd_launch<true>(q, k, v, out, seq_offsets, num_contextuals, num_targets, T, B, H, dh,
-                          max_seqlen, alpha, inv_scaling, causal, target_group_size,
-                          max_attn_len, min_full_attn_seq_len, r, stream);
+  return fwd_launch<true, false>(q, k, v, out, seq_offsets, num_contextuals, num_targets, T, B, H,
+                                 dh, max_seqlen, alpha, inv_scaling, causal, target_group_size,
+                                 max_attn_len, min_full_attn_seq_len, r, 1.f, stream);
+}
+
+// K5: int8 q, k, v [T, H, dh] (dh 32, 64, 128 or 256; 16-byte aligned), the
+// rest as K1; `alpha` already times q_scale * k_scale, and the bf16 output
+// is scaled by `v_scale`. Same return codes.
+extern "C" int hstu_attn_fwd_int8_launch(const void* q, const void* k, const void* v, void* out,
+                                         const int* seq_offsets, const int* num_contextuals,
+                                         const int* num_targets, int T, int B, int H, int dh,
+                                         int max_seqlen, float alpha, float inv_scaling,
+                                         int causal, int target_group_size, int max_attn_len,
+                                         int min_full_attn_seq_len, float v_scale, void* stream) {
+  return fwd_launch<false, true>(q, k, v, out, seq_offsets, num_contextuals, num_targets, T, B, H,
+                                 dh, max_seqlen, alpha, inv_scaling, causal, target_group_size,
+                                 max_attn_len, min_full_attn_seq_len, Rab{}, v_scale, stream);
 }
 
 // The layout check: bf16 a, b [64][dh] and p [64][64] (row-major), fp32
@@ -506,4 +712,23 @@ extern "C" int hstu_fwd_tile_check_launch(const void* a, const void* b, const vo
   float *S = static_cast<float*>(s_out), *O = static_cast<float*>(o_out);
   FWD_DISPATCH_DH(dh, sm90::launch(tile_check_kernel<DH>, 1024 + 2 * Tile<DH>::BYTES + 8,
                                    dim3(1), 128, st, m[0], m[1], P, S, O))
+}
+
+// K5's layout check: int8 a, b [64][dh], bf16 p [64][64] (row-major); fp32
+// s_out [64][64] = a b^T (exact) and o_out [64][dh] = p b. Same return codes.
+extern "C" int hstu_fwd_i8_tile_check_launch(const void* a, const void* b, const void* pg,
+                                             void* s_out, void* o_out, int dh, void* stream) {
+  if (dh != 32 && dh != 64 && dh != 128 && dh != 256) return -1;
+  CUtensorMap m[3];
+  int err = sm90::make_row_map_i8(&m[0], a, BT, 1, dh);
+  if (!err) err = sm90::make_row_map_i8(&m[1], b, BT, 1, dh);
+  if (!err) err = sm90::make_map(&m[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b, BT, dh, dh, BT, dh,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* P = static_cast<const bf16*>(pg);
+  float *S = static_cast<float*>(s_out), *O = static_cast<float*>(o_out);
+  FWD_DISPATCH_DH(dh, sm90::launch(tile_check_i8_kernel<DH>,
+                                   1024 + 2 * Tile8<DH>::BYTES + Tile<DH>::BYTES + BT * DH + 8,
+                                   dim3(1), 128, st, m[0], m[1], m[2], P, S, O))
 }

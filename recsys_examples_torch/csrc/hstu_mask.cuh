@@ -1,7 +1,7 @@
 // The jagged HSTU attention's mask, tile plan and relative bias, shared by
-// the training kernels (hstu_attention_fwd.cu: K1, K4's forward;
-// hstu_attention_bwd.cu: K2, K3, K4's dq and dk/dv) and the int8 forward
-// (hstu_attention.cu: K5). The tile plan
+// the forward kernels (hstu_attention_fwd.cu: K1, K4's forward and the int8
+// forward K5) and the backward ones (hstu_attention_bwd.cu: K2, K3, K4's dq
+// and dk/dv). The tile plan
 // is a line-by-line copy of the plain statements in
 // recsys_examples_torch/ops/hstu_attention_ref.py (`tile_fully_valid`,
 // `causal_edge`, `causal_edge_valid`, `kv_tile_end`, `fwd_cta_tiles`,

@@ -228,28 +228,8 @@ struct Cta {
   }
 };
 
-// Byte offset of element (r, c), c a multiple of 8, in a [64][DH] bf16 tile of
-// TMA panels (sm90_wgmma.cuh's layout).
-template <int DH>
-__device__ __forceinline__ uint32_t tile_off(uint32_t r, uint32_t c) {
-  using L = Tile<DH>;
-  const uint32_t f = L::PB == 128 ? (r & 7) : ((r >> 1) & 3);
-  return (c / L::PW) * L::PANEL + r * L::PB + ((((c % L::PW) >> 3) ^ f) << 4);
-}
-
-// 16 int8 values (one 16-byte vector) -> 16 bf16 values, two a word in
-// order, without a conversion instruction: for each value x, A = 0x4300 |
-// (x & 127) reads 128 + (x & 127) and B = 0x4300 | (x & 128) reads 128 + 128 s
-// (s the sign bit), so A - B (one bf16x2 subtraction a pair) is x, exactly.
-__device__ __forceinline__ void widen16(uint32_t (&o)[8], uint4 raw) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t t = __byte_perm(w[i / 2], 0, i % 2 ? 0x4342 : 0x4140);   // bytes at 0 and 16
-    const uint32_t a = (t & 0x007F007Fu) | 0x43004300u, b = (t & 0x00800080u) | 0x43004300u;
-    asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(o[i]) : "r"(a), "r"(b));
-  }
-}
+using sm90::tile_off;
+using sm90::widen16;
 
 enum Form { NONE, PAGE, TAIL };
 
@@ -789,28 +769,10 @@ int dispatch_wg(int dh, int nc, const void* q, const void* kp, const void* vp, c
 // Clusters of `splits` CTAs of one instance that the card holds at once.
 template <int DH, int NC, bool I8>
 int cluster_capacity(int H, int splits) {
-  const auto kern = wg::paged_wgmma_kernel<DH, NC, I8>;
   const size_t smem = wg::Smem<DH, NC, I8>::bytes(H);
   if (smem > 232448) return -4;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && splits > 8)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, 1, 1);
-  cfg.blockDim = dim3(wg::Roles<NC, I8>::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = splits;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
+  return sm90::cluster_capacity(wg::paged_wgmma_kernel<DH, NC, I8>, smem,
+                                wg::Roles<NC, I8>::THREADS, splits);
 }
 
 template <int DH>

@@ -1,31 +1,35 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
-// wgmma shared-memory descriptors and the bf16 m64nNk16 product with A from
-// shared memory or from registers, the repack of an accumulator into A
-// fragments, its fence / commit / wait, the TMA tensor map and the 64-row
-// panel tile it loads, the mbarrier full/empty ring, named barriers,
-// setmaxnreg, thread-block clusters (barrier, distributed shared memory,
-// launch) and the product chains of K1 and K6.
+// cp.async copies, wgmma shared-memory descriptors and the bf16 m64nNk16
+// product with A from shared memory or from registers, the int8 m64nNk32
+// product with int32 sums, the repack of an accumulator into A fragments,
+// its fence / commit / wait, the TMA tensor map (2-D and 3-D) and the panel
+// tile it loads, the widening of int8 rows into such a tile, the mbarrier
+// full/empty ring, named barriers, setmaxnreg, thread-block clusters
+// (barrier, distributed shared memory, launch) and the product chains of K1
+// and K6.
 //
-// Tile layout. A [64][D] bf16 tile arrives by TMA as D / PW panels of
-// [64 rows][PW columns], PW = 64 (128-byte rows, 128-byte swizzle) or, for
-// D = 32, PW = 32 (64-byte rows, 64-byte swizzle). Panel i holds columns
-// i*PW .. i*PW + PW - 1 at byte offset i * 64 * 2PW. Inside a panel, row r's
-// 16-byte chunk j lies at r * 2PW + 16 * (j ^ f(r)), with f(r) = r % 8 for
-// the 128-byte swizzle and (r / 2) % 4 for the 64-byte one; the swizzle acts
-// on address bits, so every panel starts on a 1024-byte boundary.
+// Tile layout. A [R][D] bf16 tile (R = 64 rows, or 32) arrives by TMA as
+// D / PW panels of [R rows][PW columns], PW = 64 (128-byte rows, 128-byte
+// swizzle) or, for D = 32, PW = 32 (64-byte rows, 64-byte swizzle). Panel i
+// holds columns i*PW .. i*PW + PW - 1 at byte offset i * R * 2PW. Inside a
+// panel, row r's 16-byte chunk j lies at r * 2PW + 16 * (j ^ f(r)), with
+// f(r) = r % 8 for the 128-byte swizzle, (r / 2) % 4 for the 64-byte one
+// and (r / 4) % 2 for the 32-byte one; the swizzle acts on address bits, so
+// every panel starts on a 1024-byte boundary. An int8 [64][D] tile (`Tile8`)
+// has the same bytes as a bf16 [64][D / 2] one: a 128-byte panel holds 128
+// int8 columns, and at D = 32 the rows are 32 bytes with the 32-byte swizzle.
 //
 // The two ways wgmma reads such a tile (cute's canonical GMMA layouts):
 //  - K-major (the reduction index runs along a row): start = the k-slice's
-//    byte offset in the row (k0 * 2 % 2PW, in panel k0 / PW); SBO = 8 rows =
-//    8 * 2PW bytes between 8-row groups; LBO unused. Advancing k within the
-//    swizzle row adds 32 bytes per 16 elements to the start address.
+//    byte offset in the row (32 bytes a slice: 16 bf16 or 32 int8 values,
+//    in panel k0 / PW); SBO = 8 rows = 8 * 2PW bytes between 8-row groups;
+//    LBO unused.
 //  - MN-major (the output index runs along a row; the B operand read with
 //    its transpose bit): start = row k0, column n0 of the panel holding n0;
 //    LBO = the panel size (the next PW output columns), SBO = 8 rows (the
 //    next 8 k).
 // A [64][64] product tile that a kernel writes itself (P, dS) uses the
 // 128-byte swizzle with 128-byte rows: `swz128`.
-//
 // wgmma accumulator layout (m64nN, fp32, thread t of the warpgroup, element
 // i of N/2): row (t / 32) * 16 + (t % 32) / 4 + 8 * ((i / 2) % 2), column
 // 8 * (i / 4) + 2 * (t % 4) + i % 2.
@@ -49,15 +53,42 @@
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only: libcuda is not linked)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90_mma.cuh"
-
 namespace sm90 {
 
+using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------------------ copies
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16-byte async copy; zero-fills the destination when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+// 4-byte async copy (one fp32 scale); zero-fills when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ------------------------------------------------------------ descriptors
-enum : int { SW128 = 1, SW64 = 2 };   // the descriptor's layout_type
+enum : int { SW128 = 1, SW64 = 2, SW32 = 3 };   // the descriptor's layout_type
 
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo,
                                               int layout) {
@@ -115,6 +146,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define SM90_F8(i)                                                              \
@@ -237,6 +273,27 @@ struct WgmmaRS<128, TB> {
   }
 };
 
+#define SM90_I8(i)                                                              \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),   \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[64 x 64] (+)= A[64 x 32] . B[32 x 64] in int8 with int32 sums, both
+// operands K-major from shared memory (the integer forms take no transpose).
+// `acc` 0 overwrites d. Products of int8 values summed in int32 are exact.
+struct WgmmaS8 {
+  static __device__ __forceinline__ void run(int (&d)[32], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : SM90_I8(0), SM90_I8(8), SM90_I8(16), SM90_I8(24)
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+#undef SM90_I8
 #undef SM90_F8
 
 // An m64nN accumulator (R = N / 2 values a thread) as the bf16 A fragments
@@ -256,6 +313,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same for a 3-D map: the box at (c0 = column, c1 = row, c2 = batch).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
          "r"(smem_u32(bar))
       : "memory");
 }
@@ -375,20 +443,55 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
   return v;
 }
 
-// ------------------------------------------------------------ panel tiles
-constexpr int TILE_ROWS = 64;   // rows of every TMA tile
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
 
-// The panels of a [64][DH] bf16 tile (the layout at the top of this file).
-template <int DH>
+// ------------------------------------------------------------ panel tiles
+constexpr int TILE_ROWS = 64;   // rows of a TMA tile, unless a kernel says otherwise
+
+// The panels of a [ROWS][DH] bf16 tile (the layout at the top of this file).
+template <int DH, int ROWS = TILE_ROWS>
 struct Tile {
   static constexpr int PW = DH < 64 ? DH : 64;   // panel columns (one TMA box row)
   static constexpr int PB = 2 * PW;              // panel row bytes = the swizzle span
-  static constexpr int NP = DH / PW;             // panels per [64][DH] tile
-  static constexpr int PANEL = TILE_ROWS * PB;   // bytes of a panel
-  static constexpr int BYTES = NP * PANEL;       // bytes of a [64][DH] tile
-  static constexpr int SW = PB == 128 ? SW128 : SW64;
+  static constexpr int NP = DH / PW;             // panels per tile
+  static constexpr int PANEL = ROWS * PB;        // bytes of a panel
+  static constexpr int BYTES = NP * PANEL;       // bytes of a tile
+  static constexpr int SW = PB == 128 ? SW128 : PB == 64 ? SW64 : SW32;
   static_assert(BYTES % 1024 == 0, "tiles start on 1024-byte boundaries");
 };
+
+// The panels of a [64][DH] int8 tile: the bytes of a bf16 [64][DH / 2] one
+// (DH 32: 32-byte rows under the 32-byte swizzle).
+template <int DH>
+using Tile8 = Tile<DH / 2>;
+
+// Byte offset of element (r, c), c a multiple of 8, in a [ROWS][DH] bf16
+// tile of TMA panels.
+template <int DH, int ROWS = TILE_ROWS>
+__device__ __forceinline__ uint32_t tile_off(uint32_t r, uint32_t c) {
+  using L = Tile<DH, ROWS>;
+  const uint32_t f = L::PB == 128 ? (r & 7) : ((r >> 1) & 3);
+  return (c / L::PW) * L::PANEL + r * L::PB + ((((c % L::PW) >> 3) ^ f) << 4);
+}
+
+// 16 int8 values (one 16-byte vector) -> 16 bf16 values, two a word in
+// order, without a conversion instruction: for each value x, A = 0x4300 |
+// (x & 127) reads 128 + (x & 127) and B = 0x4300 | (x & 128) reads 128 + 128 s
+// (s the sign bit), so A - B (one bf16x2 subtraction a pair) is x, exactly.
+__device__ __forceinline__ void widen16(uint32_t (&o)[8], uint4 raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t t = __byte_perm(w[i / 2], 0, i % 2 ? 0x4342 : 0x4140);   // bytes at 0 and 16
+    const uint32_t a = (t & 0x007F007Fu) | 0x43004300u, b = (t & 0x00800080u) | 0x43004300u;
+    asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(o[i]) : "r"(a), "r"(b));
+  }
+}
 
 // Rows [row, row + 64) and columns [col, col + DH) of `map` into a tile.
 template <int DH>
@@ -399,8 +502,18 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap*
   for (int i = 0; i < L::NP; ++i) tma_load_2d(dst + i * L::PANEL, map, col + i * L::PW, row, bar);
 }
 
+// The same for an int8 tile (`Tile8`; an int8 map's columns are bytes).
+template <int DH>
+__device__ __forceinline__ void load_tile8(unsigned char* dst, const CUtensorMap* map, int col,
+                                           int row, uint64_t* bar) {
+  using L = Tile8<DH>;
+#pragma unroll
+  for (int i = 0; i < L::NP; ++i) tma_load_2d(dst + i * L::PANEL, map, col + i * L::PB, row, bar);
+}
+
 // ------------------------------------------------------------ product chains
-// K1's and K6's: S = Q K^T and O += P V over [64][DH] tiles.
+// K1's, K5's, K6's and K7's: S = Q K^T and O += P V over [64][DH] tiles (K7:
+// also [32][DH] ones).
 template <int DH>
 struct Out {
   static constexpr int CH = DH < 128 ? DH : 128;   // output columns of one P V chain
@@ -433,31 +546,50 @@ __device__ __forceinline__ void score_chain(float (&even)[32], float (&odd)[32],
 }
 
 // The same product in one sum (K6's score: no loss limit to keep, and 32
-// registers fewer beside O).
-template <int DH>
-__device__ __forceinline__ void score_chain(float (&acc)[32], const unsigned char* a,
+// registers fewer beside O), or, with N < 64, against a [N][DH] tile b
+// (K7's 32-key chunks): A[64][DH] . B[N][DH]^T ([64 x N]).
+template <int DH, int N = TILE_ROWS>
+__device__ __forceinline__ void score_chain(float (&acc)[N / 2], const unsigned char* a,
                                             const unsigned char* b) {
-  using L = Tile<DH>;
-  constexpr int SL = L::PW / 16;
-  const uint64_t da = sm90::opaque(sm90::smem_desc(a, 16, 8 * L::PB, L::SW));
-  const uint64_t db = sm90::opaque(sm90::smem_desc(b, 16, 8 * L::PB, L::SW));
+  using LA = Tile<DH>;
+  using LB = Tile<DH, N>;
+  constexpr int SL = LA::PW / 16;
+  const uint64_t da = sm90::opaque(sm90::smem_desc(a, 16, 8 * LA::PB, LA::SW));
+  const uint64_t db = sm90::opaque(sm90::smem_desc(b, 16, 8 * LB::PB, LB::SW));
 #pragma unroll
   for (int s = 0; s < DH / 16; ++s) {
-    const int off = (s / SL) * L::PANEL + (s % SL) * 32;
-    sm90::Wgmma<64, 0>::run(acc, sm90::desc_at(da, off), sm90::desc_at(db, off), s > 0);
+    const int k = (s % SL) * 32;
+    sm90::Wgmma<N, 0>::run(acc, sm90::desc_at(da, (s / SL) * LA::PANEL + k),
+                           sm90::desc_at(db, (s / SL) * LB::PANEL + k), s > 0);
   }
 }
 
-// o[64 x DH] += P[64 x 64] . X[64][DH]: P as A fragments (slice kk in
-// pa[4 kk .. 4 kk + 3]), X a tile read MN-major.
+// The same product on int8 tiles (`Tile8`) in one int32 chain of DH / 32
+// slices: int8 products summed in int32 are exact in any order.
 template <int DH>
+__device__ __forceinline__ void score_chain8(int (&acc)[32], const unsigned char* a,
+                                             const unsigned char* b) {
+  using L = Tile8<DH>;
+  constexpr int SL = L::PB / 32;   // 32-byte k-slices per panel
+  const uint64_t da = sm90::opaque(sm90::smem_desc(a, 16, 8 * L::PB, L::SW));
+  const uint64_t db = sm90::opaque(sm90::smem_desc(b, 16, 8 * L::PB, L::SW));
+#pragma unroll
+  for (int s = 0; s < DH / 32; ++s) {
+    const int off = (s / SL) * L::PANEL + (s % SL) * 32;
+    sm90::WgmmaS8::run(acc, sm90::desc_at(da, off), sm90::desc_at(db, off), s > 0);
+  }
+}
+
+// o[64 x DH] += P[64 x K] . X[K][DH]: P as A fragments (slice kk in
+// pa[4 kk .. 4 kk + 3]), X a [K][DH] tile read MN-major (K = 64, or K7's 32).
+template <int DH, int K = TILE_ROWS>
 __device__ __forceinline__ void pv_chain(float (&o)[Out<DH>::NCH][Out<DH>::CH / 2],
-                                         const uint32_t (&pa)[16], const unsigned char* x) {
-  using L = Tile<DH>;
+                                         const uint32_t (&pa)[K / 4], const unsigned char* x) {
+  using L = Tile<DH, K>;
   using O = Out<DH>;
   const uint64_t dx = sm90::opaque(sm90::smem_desc(x, L::PANEL, 8 * L::PB, L::SW));
 #pragma unroll
-  for (int kk = 0; kk < TILE_ROWS / 16; ++kk)
+  for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll
     for (int j = 0; j < O::NCH; ++j) {
       const int c0 = j * O::CH;
@@ -497,34 +629,44 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a matrix [rows][cols] of `type` elements of `esize` bytes
-// (`ld` elements between rows) read in boxes of box_rows x box_cols, with
-// the given swizzle. Rows and columns past the matrix read as zero, and a
-// box's bytes all count on its barrier. Returns 0, or -2 without
+// The map of a matrix [rows][cols] of `type` elements of `esize` bytes (`ld`
+// elements between rows) or, with `ld_batch` > 0 elements between batches,
+// of a tensor [batches][rows][cols] (3-D), read in boxes of box_rows x
+// box_cols (of one batch), with the given swizzle. Rows and columns past the tensor read as zero, and a box's
+// bytes all count on its barrier. Returns 0, or -2 without
 // `cuTensorMapEncodeTiled`, -3 if it refuses the map.
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
                     uint64_t rows, uint64_t cols, uint64_t ld, uint32_t box_rows,
-                    uint32_t box_cols, CUtensorMapSwizzle sw) {
+                    uint32_t box_cols, CUtensorMapSwizzle sw, uint64_t batches = 1,
+                    uint64_t ld_batch = 0) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return -2;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * esize};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+  const cuuint32_t rank = ld_batch ? 3 : 2;
+  const cuuint64_t dims[3] = {cols, rows, batches};
+  const cuuint64_t strides[2] = {ld * esize, ld_batch * esize};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
+// The swizzle of a box row of `bytes` (128, 64 or 32).
+inline CUtensorMapSwizzle swizzle_of(uint32_t bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
 // The map of a bf16 matrix [rows][cols] (`ld` elements between rows) read in
 // boxes of box_rows x box_cols, box_cols * 2 bytes being the swizzle span
-// (128 or 64). Same return codes.
+// (128 or 64); with `ld_batch` > 0, of a bf16 tensor [batches][rows][cols]
+// (3-D). Same return codes.
 inline int make_tile_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                         uint64_t ld, uint32_t box_rows, uint32_t box_cols) {
+                         uint64_t ld, uint32_t box_rows, uint32_t box_cols,
+                         uint64_t batches = 1, uint64_t ld_batch = 0) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, ld, box_rows,
-                  box_cols,
-                  box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+                  box_cols, swizzle_of(box_cols * 2), batches, ld_batch);
 }
 
 // The maps of N packed bf16 tensors [T][H * dh], read in 64-row boxes of one
@@ -538,6 +680,14 @@ inline int make_row_maps(CUtensorMap (&m)[N], const void* const (&x)[N], int T, 
     if (err) return err;
   }
   return 0;
+}
+
+// The map of a packed int8 tensor [T][H * dh], read in 64-row boxes of one
+// `Tile8` panel (min(dh, 128) bytes, swizzled). Same return codes.
+inline int make_row_map_i8(CUtensorMap* m, const void* x, int T, int H, int dh) {
+  const uint32_t pb = dh < 128 ? dh : 128;
+  return make_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, T, (uint64_t)H * dh, (uint64_t)H * dh,
+                  TILE_ROWS, pb, swizzle_of(pb));
 }
 
 // ------------------------------------------------------------ host: launch
@@ -582,6 +732,32 @@ int launch_cluster(void (*kern)(A...), size_t smem, dim3 grid, int threads, int 
   err = cudaLaunchKernelEx(&cfg, kern, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs of `kern` (`threads` threads and `smem`
+// bytes of dynamic shared memory each) the card holds at once; a negative
+// CUDA error code when the query fails.
+template <typename... A>
+int cluster_capacity(void (*kern)(A...), size_t smem, int threads, int cluster) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace sm90

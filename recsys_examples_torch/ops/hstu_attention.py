@@ -7,16 +7,17 @@ q, k, v and `seq_offsets [B+1]`, as the original `hstu_attn_varlen_func`
 takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv); with
 a relative attention bias `rab` the three kernels of K4 run instead (forward,
 dq + drab, dk/dv):
-  - CUDA tensors launch the hand-written kernels (bf16, head dims
-    32/64/128/256, all wgmma, TMA, warp-specialised) or raise: K1 and K4's
-    forward from `csrc/hstu_attention_fwd.cu`, K2, K3, K4's dq + drab and
-    K4's dk/dv from `csrc/hstu_attention_bwd.cu`;
+  - CUDA tensors launch the hand-written kernels (head dims 32/64/128/256,
+    all wgmma, TMA, warp-specialised) or raise: K1 and K4's forward from
+    `csrc/hstu_attention_fwd.cu`, K2, K3, K4's dq + drab and K4's dk/dv
+    from `csrc/hstu_attention_bwd.cu`;
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
 Each kernel wrapper counts its launches in `.launches`.
 
-`hstu_attn_varlen_quantized_calibrated` is the int8 forward (K5, from
-`csrc/hstu_attention.cu`): int8 q, k, v with three per-tensor scales
-(`quantize_per_tensor`), forward only, no autograd, no bias.
+`hstu_attn_varlen_quantized_calibrated` is the int8 forward (K5, the int8
+instance of K1's kernel in `csrc/hstu_attention_fwd.cu`): int8 q, k, v with
+three per-tensor scales (`quantize_per_tensor`), forward only, no autograd,
+no bias.
 `hstu_attn_varlen(quantized=True)` quantizes its operands per tensor and
 takes that route.
 """
@@ -56,29 +57,29 @@ class AttnOptions:
 
 
 # ------------------------------------------------------------ CUDA wrappers
-# entry: (library, tensor pointers, whether it takes the bias arguments)
-_ENTRIES = {
-    "hstu_attn_fwd_launch": ("hstu_attention_fwd", 4, False),       # q, k, v, out
-    "hstu_attn_bwd_dq_launch": ("hstu_attention_bwd", 5, False),    # q, k, v, dO, dq
-    "hstu_attn_bwd_dkv_launch": ("hstu_attention_bwd", 6, False),   # ..., dk, dv
-    "hstu_attn_rab_fwd_launch": ("hstu_attention_fwd", 4, True),
-    "hstu_attn_rab_bwd_dq_launch": ("hstu_attention_bwd", 5, True),
-    "hstu_attn_rab_bwd_dkv_launch": ("hstu_attention_bwd", 6, True),
-}
 # rab, drab, their batch and head strides, row stride, dtype and atomic flags
 _RAB_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+# entry: (library, tensor pointers, the arguments after the mask options)
+_ENTRIES = {
+    "hstu_attn_fwd_launch": ("hstu_attention_fwd", 4, []),          # q, k, v, out
+    "hstu_attn_bwd_dq_launch": ("hstu_attention_bwd", 5, []),       # q, k, v, dO, dq
+    "hstu_attn_bwd_dkv_launch": ("hstu_attention_bwd", 6, []),      # ..., dk, dv
+    "hstu_attn_rab_fwd_launch": ("hstu_attention_fwd", 4, _RAB_ARGS),
+    "hstu_attn_rab_bwd_dq_launch": ("hstu_attention_bwd", 5, _RAB_ARGS),
+    "hstu_attn_rab_bwd_dkv_launch": ("hstu_attention_bwd", 6, _RAB_ARGS),
+    "hstu_attn_fwd_int8_launch": ("hstu_attention_fwd", 4, [ctypes.c_float]),   # v_scale
+}
 
 
 def _fn(entry: str):
     from recsys_examples_torch.utils import cuda_build
 
-    lib, n_ptr, with_rab = _ENTRIES[entry]
+    lib, n_ptr, extra = _ENTRIES[entry]
     fn = getattr(cuda_build.load(lib), entry)
     # pointers, seq_offsets and the two counts; T (for the TMA maps), B, H,
     # dh, max_seqlen; alpha, 1 / scaling; the four mask options
     fn.argtypes = [ctypes.c_void_p] * (n_ptr + 3) + [ctypes.c_int] * 5 \
-        + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + (_RAB_ARGS if with_rab else []) \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + extra + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -143,12 +144,13 @@ def _check_operands(entry, tensors, dtype, seq_offsets, num_contextuals, num_tar
 
 
 def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
-            opts: AttnOptions, rab=None, drab=None):
-    """Check the operands and launch `entry` on the current stream."""
-    B, H, dh, dev = _check_operands(entry, tensors, torch.bfloat16, seq_offsets,
+            opts: AttnOptions, rab=None, drab=None, dtype=torch.bfloat16, extra=()):
+    """Check the operands and launch `entry` on the current stream; `extra`:
+    the arguments after the mask options, but for the bias's."""
+    B, H, dh, dev = _check_operands(entry, tensors, dtype, seq_offsets,
                                     num_contextuals, num_targets, opts)
-    _, _, with_rab = _ENTRIES[entry]
-    rab_args = _rab_args(rab, drab, B, H, opts, dev) if with_rab else ()
+    if _ENTRIES[entry][2] is _RAB_ARGS:
+        extra = _rab_args(rab, drab, B, H, opts, dev)
     fn = _fn(entry)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
@@ -158,7 +160,7 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
             tensors[0].shape[0], B, H, dh, opts.max_seqlen,
             float(opts.alpha), 1.0 / float(opts.scaling_seqlen), int(opts.causal),
             opts.target_group_size, opts.max_attn_len, opts.min_full_attn_seq_len,
-            *rab_args, torch.cuda.current_stream(dev).cuda_stream,
+            *extra, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} failed: error {err}")
@@ -237,27 +239,9 @@ def hstu_attn_fwd_int8_cuda(q8, k8, v8, seq_offsets, num_contextuals, num_target
     """K5: K1 on int8 q, k, v [T, H, dh]. `opts.alpha` already holds
     alpha * q_scale * k_scale; the bf16 output is scaled by `v_scale`. Rows
     no sequence owns come out zero."""
-    from recsys_examples_torch.utils import cuda_build
-
-    B, H, dh, dev = _check_operands("hstu_attn_fwd_int8_launch", (q8, k8, v8), torch.int8,
-                                    seq_offsets, num_contextuals, num_targets, opts)
-    fn = cuda_build.load("hstu_attention").hstu_attn_fwd_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 \
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.zeros(q8.shape, dtype=torch.bfloat16, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        err = fn(
-            q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), out.data_ptr(),
-            seq_offsets.data_ptr(), ptr(num_contextuals), ptr(num_targets),
-            B, H, dh, opts.max_seqlen, float(opts.alpha),
-            1.0 / float(opts.scaling_seqlen), int(opts.causal),
-            opts.target_group_size, opts.max_attn_len, opts.min_full_attn_seq_len,
-            float(v_scale), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"hstu_attn_fwd_int8_launch failed: error {err}")
+    out = torch.zeros(q8.shape, dtype=torch.bfloat16, device=q8.device)
+    _launch("hstu_attn_fwd_int8_launch", (q8, k8, v8), (out,), seq_offsets, num_contextuals,
+            num_targets, opts, dtype=torch.int8, extra=(float(v_scale),))
     hstu_attn_fwd_int8_cuda.launches += 1
     return out
 

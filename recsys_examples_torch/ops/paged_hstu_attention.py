@@ -42,6 +42,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from recsys_examples_torch.utils.clusters import MAX_SPLITS, one_wave_split
+
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 
@@ -116,7 +118,6 @@ def paged_hstu_delta_attention_ref(
 # by line, and the wrapper launches the plan of `paged_split_plan`.
 PAGED_CHUNK = 64         # key positions per chunk: one 64-row TMA tile
 PAGED_ROWS = 64          # query rows per consumer warpgroup (one wgmma M)
-PAGED_MAX_SPLITS = 16    # CTAs per cluster: 8 are portable, 16 where the card allows it
 
 
 class PagedPlan(NamedTuple):
@@ -139,7 +140,7 @@ def paged_split_plan(B: int, S: int, H: int, maxp: int, pg: int,
                      capacity: Callable[[int, int], int]) -> PagedPlan:
     """The grid of the bf16 and int8 kernels, from shapes alone (no device
     value is read, so no host sync): the largest split over keys, at most
-    PAGED_MAX_SPLITS and at most the chunks a user can have, whose clusters
+    MAX_SPLITS and at most the chunks a user can have, whose clusters
     (one per user, query block and head) the card holds all at once.
     `capacity(consumers, splits)` is how many clusters of `splits` CTAs it
     holds (the wrapper asks the card). A second wave of clusters costs more
@@ -151,11 +152,8 @@ def paged_split_plan(B: int, S: int, H: int, maxp: int, pg: int,
         raise ValueError(f"the bf16 and int8 paged kernels take page sizes 8, 16, 32 or a "
                          f"multiple of {PAGED_CHUNK}, got {pg}")
     consumers, rows, qblocks = paged_query_blocks(S)
-    clusters = B * H * qblocks
     most = -(-maxp * pg // PAGED_CHUNK) + -(-min(S, rows) // PAGED_CHUNK)
-    splits = min(PAGED_MAX_SPLITS, most)
-    while splits > 1 and clusters > capacity(consumers, splits):
-        splits -= 1
+    splits = one_wave_split(B * H * qblocks, most, lambda s: capacity(consumers, s))
     return PagedPlan(splits, consumers, rows, qblocks, (splits, H, B * qblocks))
 
 

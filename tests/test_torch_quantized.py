@@ -154,3 +154,61 @@ def test_quantized_route_of_hstu_attn_varlen():
     assert (out.float() - full).abs().max() < 0.05 * full.abs().max()
     with pytest.raises(ValueError, match="bias"):
         t_ha.hstu_attn_varlen(q, k, v, so, 8, quantized=True, rab=torch.zeros(1, 1, 8, 8))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_int8_score_is_exact_in_any_order(D):
+    """K5's score runs as an int8 x int8 -> int32 product (wgmma s8.s8.s32)
+    where the TPU kernel widens to bf16 and sums in fp32. Each term is at
+    most 127^2 in size, so at these head dims every partial sum stays below
+    2^24 and an fp32 sum of the widened products is exact in any order: the
+    int32 product equals it bit for bit. Worst-case operands: +-127 with
+    aligned signs (the largest sums) and random signs."""
+    rng = np.random.default_rng(D)
+    signs = rng.choice(np.array([-1, 1], np.int8), size=(64, D))
+    q = np.concatenate([np.full((1, D), 127, np.int8), 127 * signs])
+    k = np.concatenate([np.full((1, D), 127, np.int8), -127 * signs[::-1]])
+    q8, k8 = torch.from_numpy(q), torch.from_numpy(k)
+    exact = (q8.to(torch.int32) @ k8.to(torch.int32).T).numpy()
+    assert np.abs(exact).max() == 127 * 127 * D < 2 ** 24
+    terms = q8.to(torch.bfloat16).float()[:, None, :] * k8.to(torch.bfloat16).float()[None]
+    assert (terms.abs() <= 127 * 127).all()
+    for order in (np.arange(D), np.arange(D)[::-1], rng.permutation(D)):
+        s = torch.zeros(terms.shape[:2])
+        for i in order:                       # one fp32 sum per term, in this order
+            s = s + terms[:, :, int(i)]
+        np.testing.assert_array_equal(s.numpy(), exact.astype(np.float32))
+    fp32 = (q8.to(torch.bfloat16).float() @ k8.to(torch.bfloat16).float().T).numpy()
+    np.testing.assert_array_equal(fp32, exact.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_int8_forward_at_cta_edges_matches_pallas_interpret(case):
+    """K5's route (`hstu_attn_varlen_quantized_calibrated` on CPU tensors,
+    the plain version) against the Pallas int8 forward in interpret mode at
+    the edges of K1's 128-row CTA, whose template K5 runs: sequences of
+    127, 128, 129 and 257 rows. Held to the repo's kernel rule, as
+    `test_int8_forward_plain_matches_pallas_interpret`."""
+    lengths = [127, 128, 129, 257]
+    N, H, D = 257, 2, 64
+    offs = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    T = int(offs[-1])
+    ctx, tgt, kw = CASES[case]
+    if ctx is not None:
+        ctx, tgt = np.array([3, 0, 70, 130], np.int32), np.array([10, 6, 2, 9], np.int32)
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((T, H, D)).astype(np.float32) for _ in range(3))
+    (q8, sq), (k8, sk), (v8, sv) = (t_ha.quantize_per_tensor(torch.from_numpy(x))
+                                    for x in (q, k, v))
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    j = lambda x: None if x is None else jnp.asarray(x)
+    want = np.asarray(j_ha.hstu_attn_varlen_quantized_calibrated(
+        *(jnp.asarray(x.numpy()) for x in (q8, k8, v8)), sq, sk, sv,
+        (j(offs), j(ctx), j(tgt)), max_seqlen=N, alpha=0.125, interpret=True, **kw),
+        np.float32)
+    got = t_ha.hstu_attn_varlen_quantized_calibrated(
+        q8, k8, v8, sq, sk, sv, t(offs), N, num_contextuals=t(ctx), num_targets=t(tgt),
+        alpha=0.125, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, H, D)
+    got = got.float().numpy()
+    assert np.abs(got - want).max() < 2e-2 * np.abs(want).max() + 1e-3

@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one NVIDIA H100: build its CUDA kernels, hold
 each against its plain PyTorch version, run KV-cached HSTU ranking serving,
 the HSTU ranking train step (static tables; dynamic tables; dynamic tables
-and the relative attention bias), SID-GR beam-search serving and the two
-int8 kernel modes at full width through them, and print one JSON summary.
+and the relative attention bias), SID-GR beam-search serving, the two int8
+kernel modes and the gin-driven ranking and retrieval training entries at
+full width through them, and print one JSON summary.
 
 Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
@@ -130,6 +131,28 @@ Phases (any failure exits non-zero):
              launched twice (equal bit for bit), its error against the bf16
              forward, its time beside K1's in turns and both bounds (S at the
              int8 rate, and both products at the bf16 rate).
+ 14. entries the gin-driven training entries as a user runs them
+             (`training/pretrain_gr_ranking.py`, `pretrain_gr_retrieval.py`):
+             (a) ranking on configs/ranking_kuairand_bench.gin (8 layers,
+             hidden 1024, 4 x 256, bf16, batch 32, history 2048, 128
+             candidates, an item table of 4,194,304 x 1024): 6 steps,
+             checkpoints and evals at steps 3 and 6, a profiled step 5; K1-K3 at 8
+             launches a step (counters and the entry's profile); the step-3
+             checkpoint loaded into a fresh state gives step 3's eval AUC bit
+             for bit and every dumped key its row; steps 4-6 again as bare
+             train steps on the entry's batches, already on the card, with the
+             entry's losses; (b) that model at 2
+             layers with dropout 0.1: two steps with recompute_layer on and
+             off, equal bit for bit; (c) a synthetic MovieLens-1M ratings.dat
+             (6,040 users, 3,706 movies, ~1M rows) through
+             preprocess_movielens, SequenceDataset on the native packer and
+             PrefetchIterator in the ranking entry at
+             ranking_movielens_1m.gin's widths: 20 steps (step 10 profiled)
+             and an eval over the holdout; (d) the retrieval entry at retrieval_movielens_1m.gin's
+             widths over (c)'s file: 20 steps, HR@10, NDCG@10 and MRR finite
+             in [0, 1]; K1-K3 at 4 launches a step in both, and K1-K3
+             against their plain versions (phase 5's check) at the lengths,
+             mask and 4 x 64 heads of each entry's first attention call.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -137,10 +160,14 @@ from __future__ import annotations
 
 import asyncio
 import json
+import logging
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -635,14 +662,19 @@ def phase_main(attn):
 # profiler's kernel names, mangled or not): K1 and K4's forward
 # (hstu_attention_fwd.cu), K2, K3 and K4's dq and dk/dv
 # (hstu_attention_bwd.cu); K4's are the RAB instances of K1-K3's templates.
-def _instance(kernel, rab):
-    return kernel + (r"(?:ILi\d+ELb1E|<\d+, true>)" if rab else r"(?:ILi\d+ELb0E|<\d+, false>)")
+def _instance(kernel, rab, fwd=False):
+    """A kernel's profiler names: mangled or demangled, its bias flag, and
+    for the forward template its third (int8) flag false."""
+    flag, word = ("1", "true") if rab else ("0", "false")
+    if fwd:
+        return kernel + rf"(?:ILi\d+ELb{flag}ELb0E|<\d+, {word}, false>)"
+    return kernel + rf"(?:ILi\d+ELb{flag}E|<\d+, {word}>)"
 
 
-ATTN_KERNELS = {"K1": _instance("fwd_wgmma_kernel", False),
+ATTN_KERNELS = {"K1": _instance("fwd_wgmma_kernel", False, fwd=True),
                 "K2": _instance("dq_wgmma_kernel", False),
                 "K3": _instance("dkv_wgmma_kernel", False)}
-RAB_KERNELS = {"K4 fwd": _instance("fwd_wgmma_kernel", True),
+RAB_KERNELS = {"K4 fwd": _instance("fwd_wgmma_kernel", True, fwd=True),
                "K4 dq": _instance("dq_wgmma_kernel", True),
                "K4 dk/dv": _instance("dkv_wgmma_kernel", True)}
 ATTN_NAMES = ("wgmma_kernel",)
@@ -654,8 +686,6 @@ def profile_call(fn, label, top=10, groups=None, split=None):
     substrings of kernel names, for a breakdown by kind; `split`: label ->
     a regular expression of one kernel's names, for its device ms and
     launches apart."""
-    import re
-
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -664,6 +694,14 @@ def profile_call(fn, label, top=10, groups=None, split=None):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_report(prof, label, wall_ms, top, groups, split)
+
+
+def profile_report(prof, label, wall_ms, top=10, groups=None, split=None):
+    """Log a finished profile (see `profile_call`); returns {split label:
+    launches}."""
+    import re
+
     # device work only: user annotations (e.g. "Optimizer.step#Adam.step")
     # also carry device time, and would count their kernels twice
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
@@ -680,13 +718,16 @@ def profile_call(fn, label, top=10, groups=None, split=None):
                      "other")
             totals[g] += e.self_device_time_total / 1e3
         log("  by kind: " + ", ".join(f"{g} {ms:.2f} ms" for g, ms in totals.items()))
+    counts = {}
     if split:
         hits = {k: [e for e in events if re.search(key, e.key)] for k, key in split.items()}
+        counts = {k: sum(e.count for e in h) for k, h in hits.items()}
         log("  by kernel: " + ", ".join(
             f"{k} {sum(e.self_device_time_total for e in h) / 1e3:.3f} ms "
-            f"x{sum(e.count for e in h)}" for k, h in hits.items()))
+            f"x{counts[k]}" for k, h in hits.items()))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return counts
 
 
 # ---------------------------------------------------------------- phase 4
@@ -792,10 +833,10 @@ def attention_operands(gen, lengths, H, dh, pad=5):
 
 def check_jagged_case(name, gen, lengths, H, dh, max_seqlen, kw, ctx=None, tgt=None,
                       time_it=False, rab_shape=None, rab_dtype=torch.float32,
-                      phase="phase5"):
+                      phase="phase5", scaling_seqlen=-1):
     """K1-K3 (with `rab_shape`: K4, and drab) through `hstu_attn_varlen`
     (forward, then backward() of dO) against the plain forward and backward
-    on the same inputs."""
+    on the same inputs. `scaling_seqlen` -1 means `max_seqlen`."""
     from recsys_examples_torch.ops import hstu_attention as ha
     from recsys_examples_torch.ops.hstu_attention_ref import (
         hstu_attn_bwd_ref, hstu_mha_reference)
@@ -804,15 +845,16 @@ def check_jagged_case(name, gen, lengths, H, dh, max_seqlen, kw, ctx=None, tgt=N
     i32 = lambda x: None if x is None else torch.tensor(x, dtype=torch.int32, device="cuda")
     nc, nt = i32(ctx), i32(tgt)
     alpha = 1.0 / dh ** 0.5
-    opts = ha.AttnOptions(max_seqlen=max_seqlen, alpha=alpha, scaling_seqlen=max_seqlen,
-                          **kw)
+    scaling = max_seqlen if scaling_seqlen == -1 else scaling_seqlen
+    opts = ha.AttnOptions(max_seqlen=max_seqlen, alpha=alpha, scaling_seqlen=scaling, **kw)
     rab = None
     if rab_shape is not None:
         rab = (0.5 * torch.randn(rab_shape, generator=gen, device="cuda")).to(rab_dtype)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     bias = None if rab is None else rab.clone().requires_grad_()
     out = ha.hstu_attn_varlen(*leaves, offsets, max_seqlen, num_contextuals=nc,
-                              num_targets=nt, alpha=alpha, rab=bias, **kw)
+                              num_targets=nt, alpha=alpha, scaling_seqlen=scaling, rab=bias,
+                              **kw)
     out.backward(do)
     torch.cuda.synchronize()
     got = [out.detach()] + [x.grad for x in leaves]
@@ -2283,6 +2325,438 @@ def phase_quant_fwd(main_batch):
                 bound_by=bound_by, bf16_bound_ms=bf16_bound[0], launches=launches, k1_ms=ms_k1)
 
 
+# ---------------------------------------------------------------- phase 14
+CONFIGS = Path(__file__).resolve().parent / "configs"
+ENTRY_LINE = re.compile(r"^iter (\d+): loss=(\S+) step=(\S+)ms tflops=(\S+) mfu=(\S+)%")
+STEP_GROUPS = {"attention": ATTN_NAMES, "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+               "gather/scatter": ("index", "scatter", "gather"), "sort": ("sort", "radix"),
+               "optimizer": ("multi_tensor", "adam")}
+
+
+class EntryLog(logging.Handler):
+    """The entry's own log lines (its logger also prints them)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+        logging.getLogger("recsys_examples_torch").addHandler(self)
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def close(self):
+        logging.getLogger("recsys_examples_torch").removeHandler(self)
+        super().close()
+
+    def steps(self):
+        """[(iter, loss, step ms, TFLOP/s, MFU %)] of the `iter i:` lines."""
+        return [(int(m[1]), float(m[2]), float(m[3]), float(m[4]), float(m[5]))
+                for m in map(ENTRY_LINE.match, self.lines) if m]
+
+
+def entry_gin(tmp, name, config, lines):
+    """A gin file in `tmp` that includes the repo's `config` by absolute path
+    and overrides `lines`."""
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write("\n".join([f'include "{CONFIGS / config}"', *lines]) + "\n")
+    return path
+
+
+def run_entry(main, gin_path):
+    """`main` on `gin_path` with the attention counters at 0 just before;
+    returns (state, [K1, K2, K3 launches], entry log, seconds)."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.utils import gin_config
+
+    counters = (ha.hstu_attn_fwd_cuda, ha.hstu_attn_bwd_dq_cuda, ha.hstu_attn_bwd_dkv_cuda)
+    others = (ha.hstu_attn_rab_fwd_cuda, ha.hstu_attn_rab_bwd_dq_cuda,
+              ha.hstu_attn_rab_bwd_dkv_cuda)
+    gin_config.clear_config()
+    entry_log = EntryLog()
+    for c in counters + others:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = main(["--gin-config-file", gin_path])
+        torch.cuda.synchronize()
+    finally:
+        entry_log.close()
+    seconds = time.perf_counter() - t0
+    if any(c.launches for c in others):
+        raise SystemExit("phase14: a bias kernel launched on a path without a bias")
+    return state, [c.launches for c in counters], entry_log, seconds
+
+
+class FirstAttentionCall:
+    """While active, records the arguments of the first jagged attention call
+    that a layer makes (`modules.hstu_attention`'s `hstu_attn_varlen`): the
+    main path's lengths, mask and head shape. Adds no launch."""
+
+    def __enter__(self):
+        from recsys_examples_torch.modules import hstu_attention as mha
+
+        self.module, self.orig, self.call = mha, mha.hstu_attn_varlen, None
+
+        def spy(q, k, v, seq_offsets, max_seqlen, **kw):
+            if self.call is None:
+                ints = lambda t: None if t is None else [int(x) for x in t.tolist()]
+                self.call = dict(
+                    H=q.shape[1], dh=q.shape[2], lengths=np.diff(ints(seq_offsets)).tolist(),
+                    max_seqlen=int(max_seqlen), ctx=ints(kw.get("num_contextuals")),
+                    tgt=ints(kw.get("num_targets")),
+                    scaling_seqlen=int(kw.get("scaling_seqlen", -1)),
+                    rab=kw.get("rab") is not None,
+                    mask={n: kw[n] for n in ("causal", "target_group_size", "max_attn_len",
+                                             "min_full_attn_seq_len") if n in kw})
+            return self.orig(q, k, v, seq_offsets, max_seqlen, **kw)
+
+        mha.hstu_attn_varlen = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.hstu_attn_varlen = self.orig
+
+
+def check_main_path_attention(tag, call, H, dh):
+    """K1-K3 against their plain versions at the lengths, mask and head
+    shape that the entry's first attention call had (phase 5's check and
+    tolerance, on random q, k, v and dO)."""
+    c = call
+    if c is None or (c["H"], c["dh"]) != (H, dh) or c["rab"]:
+        raise SystemExit(f"{tag}: expected a first attention call at H {H} x {dh} without "
+                         f"a bias, recorded {c and {k: c[k] for k in ('H', 'dh', 'rab')}}")
+    n = c["lengths"]
+    log(f"{tag} the entry's first attention call: B {len(n)}, T {sum(n)}, lengths "
+        f"{min(n)}..{max(n)}, max_seqlen {c['max_seqlen']}, scaling_seqlen "
+        f"{c['scaling_seqlen']}, contextual {c['ctx'] and sorted(set(c['ctx']))}, targets "
+        f"{c['tgt'] and sorted(set(c['tgt']))}, mask {c['mask']}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    return check_jagged_case("main_path", gen, n, H, dh, c["max_seqlen"], c["mask"],
+                             c["ctx"], c["tgt"], phase=tag,
+                             scaling_seqlen=c["scaling_seqlen"])
+
+
+def check_launches(tag, launches, layers, steps, eval_batches):
+    want = [layers * (steps + eval_batches), layers * steps, layers * steps]
+    log(f"{tag} launches K1/K2/K3={launches} (expected {want}: {layers} layers x "
+        f"{steps} steps, K1 also x {eval_batches} eval batches)")
+    if launches != want:
+        raise SystemExit(f"{tag}: the attention kernels did not carry every layer")
+
+
+def log_entry_steps(tag, entry_log, steps):
+    rows = entry_log.steps()
+    if len(rows) != steps or not all(np.isfinite(r[1]) for r in rows):
+        raise SystemExit(f"{tag}: expected {steps} finite `iter` lines, got {rows}")
+    for it, loss, ms, tf, mfu in rows:
+        log(f"{tag} iter {it}: loss={loss:.5f} step_ms={ms:.1f} TFLOP/s={tf:.1f} MFU={mfu:.2f}%")
+    later = [r[2] for r in rows[1:]]
+    log(f"{tag} step_ms after the first: median {statistics.median(later):.1f} "
+        f"min {min(later):.1f} max {max(later):.1f}; MFU median "
+        f"{statistics.median(r[4] for r in rows[1:]):.2f}% (the entry's hstu_train_flops "
+        f"over its step time)")
+    return rows
+
+
+PROFILED = ["TrainerArgs.profile = True", "TrainerArgs.profile_step_start = 9",
+            "TrainerArgs.profile_step_end = 9"]
+
+
+def report_profiled_step(tag, module, rows, layers):
+    """The entry's own profile of step 10 (PROFILED), by kind and kernel;
+    K1-K3 must have launched once a layer in it."""
+    counts = profile_report(module.LAST_PROFILE,
+                            f"{tag} profile of the entry's step 10 (its own torch.profiler)",
+                            rows[9][2], top=8, groups=STEP_GROUPS, split=ATTN_KERNELS)
+    if counts != {"K1": layers, "K2": layers, "K3": layers}:
+        raise SystemExit(f"{tag}: the profiled step ran {counts} attention kernels")
+
+
+def phase_entry_ranking(tmp):
+    """(a) The ranking entry on configs/ranking_kuairand_bench.gin at full
+    width: 6 steps, a checkpoint and an eval at steps 3 and 6 (and the
+    entry's own eval at the end), a profiled step 5;
+    then the step-3 checkpoint loaded into a fresh state gives the step-3
+    eval AUC bit for bit, and steps 4-6 again as bare train steps on the
+    entry's own batches, with the entry's losses."""
+    import itertools
+
+    from recsys_examples_torch.dynamicemb.hashtable import lookup
+    from recsys_examples_torch.models.ranking_gr import RankingGR
+    from recsys_examples_torch.modules.config import RankingConfig
+    from recsys_examples_torch.training import pretrain_gr_ranking as rank
+    from recsys_examples_torch.training.checkpoint import load_checkpoint
+    from recsys_examples_torch.training.train_state import make_optimizer
+    from recsys_examples_torch.training.trainer import GRTrainer
+    from recsys_examples_torch.utils import gin_config
+
+    tag = "phase14a"
+    steps, eval_iters = 6, 2
+    ckpt = os.path.join(tmp, "ckpt")
+    gin = entry_gin(tmp, "ranking.gin", "ranking_kuairand_bench.gin", [
+        f"TrainerArgs.max_train_iters = {steps}", "TrainerArgs.log_interval = 1",
+        "TrainerArgs.ckpt_save_interval = 3", "TrainerArgs.eval_interval = 3",
+        f"TrainerArgs.eval_iters = {eval_iters}", f'TrainerArgs.ckpt_dir = "{ckpt}"',
+        "TrainerArgs.profile = True", "TrainerArgs.profile_step_start = 4",
+        "TrainerArgs.profile_step_end = 4"])
+    n_hist = len(rank.EVAL_AUC_HISTORY)
+    torch.cuda.reset_peak_memory_stats()
+    state, launches, entry_log, seconds = run_entry(rank.main, gin)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag} config: ranking_kuairand_bench.gin (8 layers, hidden 1024, 4 x 256, bf16, "
+        f"batch 32, history 2048, 128 candidates, item table 4194304 x 1024 over a 50M "
+        f"vocabulary); main() took {seconds:.1f} s, peak memory {peak_gib:.1f} GiB")
+    rows = log_entry_steps(tag, entry_log, steps)
+    check_launches(tag, launches, 8, steps, 3 * eval_iters)    # evals at 3, 6, the end
+    prof_counts = profile_report(
+        rank.LAST_PROFILE, f"{tag} profile of the entry's step 5 (its own torch.profiler)",
+        rows[4][2], top=12, groups=STEP_GROUPS, split=ATTN_KERNELS)
+    if prof_counts != {"K1": 8, "K2": 8, "K3": 8}:
+        raise SystemExit(f"{tag}: the profiled step ran {prof_counts} attention kernels")
+    history = rank.EVAL_AUC_HISTORY[n_hist:]
+    if len(history) != 3:
+        raise SystemExit(f"{tag}: expected evals at steps 3 and 6 and at the end, "
+                         f"got {history}")
+    inserted = int(state.sparse["item"].table.inserted[0])
+    del state
+    torch.cuda.empty_cache()
+
+    # a fresh state from the step-3 checkpoint: its eval AUC is step 3's
+    ds, net, opt, demb, tpa, rank_args, targs = (gin_config.make(n) for n in (
+        "DatasetArgs", "NetworkArgs", "OptimizerArgs", "DynamicEmbeddingArgs",
+        "TensorModelParallelArgs", "RankingArgs", "TrainerArgs"))
+    sparse = rank.build_sparse_tables(ds, net, demb, "cuda")
+    model = RankingGR(rank.build_hstu_config(net, 1), RankingConfig(
+        (), prediction_head_arch=tuple(rank_args.prediction_head_arch),
+        num_tasks=rank_args.num_tasks), device="cuda")
+    trainer = GRTrainer(model, make_optimizer(
+        opt.learning_rate, opt.optimizer_str, opt.adam_beta1, opt.adam_beta2, opt.adam_eps,
+        opt.weight_decay), sparse)
+    fresh = trainer.init(torch.Generator(device="cuda").manual_seed(SEED + 1))
+    path = os.path.join(ckpt, "iter_0000003")
+    t0 = time.perf_counter()
+    fresh = load_checkpoint(path, fresh, {n: t.table for n, t in sparse.items()})
+    load_s = time.perf_counter() - t0
+    dumped = np.load(os.path.join(path, "dynamicemb_module", "item.npz"))
+    table = fresh.sparse["item"].table
+    slots, found = lookup(table, torch.from_numpy(dumped["keys"]).cuda())
+    rows_equal = bool(found.all()) and torch.equal(
+        table.values[slots], torch.from_numpy(dumped["values"]).cuda())
+    size_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                  for f in fs) / 2**20
+    auc = rank.run_eval(trainer, fresh, ds, targs, rank_args, iters=eval_iters)
+    log(f"{tag} checkpoint iter_0000003: {len(dumped['keys'])} table rows "
+        f"({size_mb:.0f} MiB on disk), loaded in {load_s:.2f} s, every key returns its "
+        f"row: {rows_equal}; eval AUC at step 3 {history[0].tolist()}, after the load "
+        f"{auc.tolist()}, final {history[2].tolist()}")
+    if not rows_equal or not np.array_equal(auc, history[0]) or fresh.step != 3:
+        raise SystemExit(f"{tag}: the checkpoint round trip is not exact")
+
+    # steps 4-6 again from the loaded state, as bare train steps on batches
+    # already on the card (phase 9a's loop): the entry's overhead by
+    # difference. The entry's stream: its batch 0 went to init, batch i to step i
+    batches = [b.to("cuda") for b in itertools.islice(rank.batch_iterator(ds, targs), 4,
+                                                      steps + 1)]
+    bare_ms, bare_loss = [], []
+    for b in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fresh, m = trainer.train_step(fresh, b)
+        end.record()
+        torch.cuda.synchronize()
+        bare_ms.append(start.elapsed_time(end))
+        bare_loss.append(m["loss"].item())
+    entry_ms, entry_loss = [r[2] for r in rows[3:]], [r[1] for r in rows[3:]]
+    log(f"{tag} steps 4-6: entry step_ms {entry_ms} (step 5 under the profiler), bare "
+        f"train_step ms {[round(x, 2) for x in bare_ms]}; losses entry {entry_loss}, bare "
+        f"{bare_loss}")
+    # the entry logs 5 decimals (rounding <= 5e-6); the atomics of steps 4
+    # and 5's backward may move the later losses by a few ulps
+    if len(bare_loss) != 3 or any(abs(b - e) > 1e-5 for b, e in zip(bare_loss, entry_loss)):
+        raise SystemExit(f"{tag}: the bare steps did not reproduce the entry's losses")
+    tokens = [int(np.asarray(b.features['item'].lengths.cpu()).sum()) for b in batches]
+    del fresh, trainer, model, sparse, batches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=statistics.median(r[2] for r in rows[1:]),
+                mfu=statistics.median(r[4] for r in rows[1:]), peak_gib=peak_gib,
+                bare_ms=bare_ms, entry_ms=entry_ms, tokens=tokens, inserted=inserted,
+                auc=history[0].tolist())
+
+
+def phase_entry_remat():
+    """(b) Phase 14a's model at 2 layers with hidden_dropout 0.1: two steps
+    with recompute_layer on and off, from the same params and generator
+    seed, under deterministic algorithms (atomics in index_add_ would
+    otherwise reorder sums between the runs). Losses and params equal bit
+    for bit."""
+    import dataclasses
+
+    from recsys_examples_torch.data.hstu_batch import random_hstu_batch
+    from recsys_examples_torch.models.ranking_gr import RankingGR
+    from recsys_examples_torch.modules.config import RankingConfig
+    from recsys_examples_torch.training import pretrain_gr_ranking as rank
+    from recsys_examples_torch.training.train_state import make_optimizer
+    from recsys_examples_torch.training.trainer import GRTrainer
+    from recsys_examples_torch.utils import gin_config
+
+    tag = "phase14b"
+    gin_config.clear_config()
+    gin_config.parse_config_file(str(CONFIGS / "ranking_kuairand_bench.gin"))
+    ds, net, demb = (gin_config.make(n) for n in (
+        "DatasetArgs", "NetworkArgs", "DynamicEmbeddingArgs"))
+    host = [random_hstu_batch(seed=s, batch_size=ds.batch_size,
+                              max_history_len=ds.max_history_len,
+                              item_vocab=ds.item_vocab_size,
+                              max_num_candidates=ds.max_num_candidates) for s in range(2)]
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, True):
+            cfg = rank.build_hstu_config(dataclasses.replace(
+                net, num_layers=2, hidden_dropout=0.1, recompute_layer=remat), 1)
+            model = RankingGR(cfg, RankingConfig((), prediction_head_arch=(512, 1)),
+                              device="cuda")
+            trainer = GRTrainer(model, make_optimizer(1e-3, "adam"),
+                                rank.build_sparse_tables(ds, net, demb, "cuda"))
+            state = trainer.init(torch.Generator(device="cuda").manual_seed(SEED))
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for b in host:
+                state, m = trainer.train_step(state, b, gen)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            runs[remat] = (torch.stack(losses), {k: v.clone() for k, v in
+                                                 state.model.state_dict().items()},
+                           torch.cuda.max_memory_allocated() / 2**30)
+            del state, trainer, model
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l0, p0, m0), (l1, p1, m1) = runs[False], runs[True]
+    same = torch.equal(l0, l1) and all(torch.equal(p0[k], p1[k]) for k in p0)
+    log(f"{tag} 2 layers, dropout 0.1, two steps: losses without recompute "
+        f"{l0.tolist()}, with {l1.tolist()}; params equal bit for bit: {same}; peak memory "
+        f"{m0:.1f} GiB without, {m1:.1f} GiB with recompute")
+    if not same or not torch.isfinite(l0).all():
+        raise SystemExit(f"{tag}: recompute_layer with dropout changed the step")
+
+
+def write_ml1m_ratings(path, seed=SEED):
+    """A synthetic ratings.dat in MovieLens-1M's format and size: 6,040
+    users with at least 20 ratings each, 3,706 rated movies (ids within
+    1..3952), ratings 1-5 at ML-1M's frequencies, about 1M rows."""
+    rng = np.random.default_rng(seed)
+    counts = np.maximum(20, rng.lognormal(np.log(96), 1.0, 6040)).astype(np.int64)
+    counts = np.minimum(counts * 1_000_209 // counts.sum() + 1, 2314)
+    movies = np.sort(rng.choice(np.arange(1, 3953), 3706, replace=False))
+    pop = 1.0 / np.arange(1, 3707) ** 0.8
+    items = movies[rng.choice(3706, int(counts.sum()), p=pop / pop.sum())]
+    users = np.repeat(np.arange(1, 6041), counts)
+    ratings = rng.choice(np.arange(1, 6), len(users), p=[0.056, 0.108, 0.261, 0.349, 0.226])
+    ts = 956703932 + rng.integers(0, 10 ** 8, len(users))
+    np.savetxt(path, np.stack([users, items, ratings, ts], 1), fmt="%d::%d::%d::%d")
+    return len(users), len(np.unique(items))
+
+
+def phase_entry_movielens(tmp):
+    """(c) The file-backed ranking path at configs/ranking_movielens_1m.gin's
+    widths over a synthetic ratings.dat: preprocess, then main() through
+    SequenceDataset, the native packer and PrefetchIterator, 20 steps and
+    an eval over the whole holdout; then K1-K3 against their plain versions
+    at the shape and mask of the entry's first attention call."""
+    from recsys_examples_torch.data import sequence_dataset as sd
+    from recsys_examples_torch.training import pretrain_gr_ranking as rank
+    from recsys_examples_torch.utils import native
+
+    tag = "phase14c"
+    ratings = os.path.join(tmp, "ratings.dat")
+    t0 = time.perf_counter()
+    n_rows, n_items = write_ml1m_ratings(ratings)
+    t1 = time.perf_counter()
+    npz = os.path.join(tmp, "ml1m_seq.npz")
+    data = sd.preprocess_movielens(ratings, npz)
+    t2 = time.perf_counter()
+    lib = native.batch_assembler_lib()
+    if lib is None:
+        raise SystemExit(f"{tag}: the native packer did not build: {native.BUILD_ERRORS}")
+    steps, users = 20, len(data["user_ids"])
+    gin = entry_gin(tmp, "ml_ranking.gin", "ranking_movielens_1m.gin", [
+        f'DatasetArgs.dataset_path = "{npz}"', f"TrainerArgs.max_train_iters = {steps}",
+        "TrainerArgs.log_interval = 1", "TrainerArgs.eval_interval = 0",
+        "TrainerArgs.eval_iters = 0", *PROFILED])
+    sd._assemble_native.calls = 0
+    with FirstAttentionCall() as first:
+        state, launches, entry_log, seconds = run_entry(rank.main, gin)
+    packed = sd._assemble_native.calls
+    eval_batches = users // 128
+    log(f"{tag} ratings.dat: {n_rows} rows, {n_items} movies, written in {t1 - t0:.1f} s; "
+        f"preprocess_movielens {t2 - t1:.1f} s -> {users} users, "
+        f"{len(data['item_ids'])} events; main() {seconds:.1f} s; the native packer "
+        f"assembled {packed} batches")
+    rows = log_entry_steps(tag, entry_log, steps)
+    check_launches(tag, launches, 4, steps, eval_batches)
+    report_profiled_step(tag, rank, rows, 4)
+    auc = rank.LAST_EVAL_AUC
+    log(f"{tag} eval AUC over the holdout ({eval_batches} batches): {auc.tolist()}")
+    if packed < steps + 1 + eval_batches or not np.isfinite(auc).all():
+        raise SystemExit(f"{tag}: the native packer was not used, or the AUC is not finite")
+    del state
+    torch.cuda.empty_cache()
+    check = check_main_path_attention(tag, first.call, 4, 64)
+    return dict(launches=launches, npz=npz, auc=auc.tolist(), errs=check["errs"])
+
+
+def phase_entry_retrieval(tmp, npz):
+    """(d) The retrieval entry at configs/retrieval_movielens_1m.gin's widths
+    over (c)'s file: 20 steps and an eval over the whole holdout; then K1-K3
+    against their plain versions at the entry's first attention call."""
+    from recsys_examples_torch.training import pretrain_gr_retrieval as ret
+
+    tag = "phase14d"
+    steps = 20
+    gin = entry_gin(tmp, "ml_retrieval.gin", "retrieval_movielens_1m.gin", [
+        f'DatasetArgs.dataset_path = "{npz}"', f"TrainerArgs.max_train_iters = {steps}",
+        "TrainerArgs.log_interval = 1", "TrainerArgs.eval_interval = 0", *PROFILED])
+    torch.cuda.reset_peak_memory_stats()
+    with FirstAttentionCall() as first:
+        state, launches, entry_log, seconds = run_entry(ret.main, gin)
+    users = len(np.load(npz)["user_ids"])
+    log(f"{tag} main() {seconds:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    rows = log_entry_steps(tag, entry_log, steps)
+    check_launches(tag, launches, 4, steps, users // 128)
+    report_profiled_step(tag, ret, rows, 4)
+    metrics = ret.LAST_EVAL
+    log(f"{tag} eval over the holdout: " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    if list(metrics) != ["HR@10", "NDCG@10", "MRR"] or not all(
+            np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()):
+        raise SystemExit(f"{tag}: retrieval metrics not finite in [0, 1]: {metrics}")
+    del state
+    torch.cuda.empty_cache()
+    check = check_main_path_attention(tag, first.call, 4, 64)
+    return dict(launches=launches, metrics=metrics, errs=check["errs"])
+
+
+def phase_entries():
+    """Phase 14: the gin-driven training entries on the card."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entries_")
+    t0 = time.perf_counter()
+    try:
+        res = {"ranking": phase_entry_ranking(tmp)}
+        phase_entry_remat()
+        res["movielens"] = phase_entry_movielens(tmp)
+        res["retrieval"] = phase_entry_retrieval(tmp, res["movielens"]["npz"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase14 took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2313,6 +2787,7 @@ def main():
     phase_sid_serve()
     res["paged_int8"], paged_int8_launches = phase_quant_paged(attn)
     res["fwd_int8"] = phase_quant_fwd(host0)
+    res["entries"] = phase_entries()
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -2341,6 +2816,7 @@ def main():
                       + ("hstu_attention_fwd.cu" if kk == "fwd" else "hstu_attention_bwd.cu"),
             "replaces": f"recsys_examples_tpu/ops/pallas/hstu_attention.py:{line}",
             "launches": launches_9a[i],     # bench.py's step, phase 9a
+            "entry_launches": res["entries"]["ranking"]["launches"][i],   # phase 14a
             "max_abs_err": max([train["errs"][t] for t in tags]
                                + [c["errs"][t] for c in res["jagged"].values() for t in tags]),
             "ms": train["ms"][kk],

@@ -3,7 +3,7 @@
 The dtype is a torch dtype. The kernel choice needs no field: a kernel
 wrapper launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors. Fields of unported features (sequence
-parallelism, eval metrics, table sharding) and the
+parallelism, the ranking eval metrics, table sharding) and the
 TPU-only ones (the Pallas block sizes, the block-aligned layout) are not
 carried over.
 """
@@ -49,7 +49,7 @@ class HSTUConfig:
     item_embedding_dim: int = 0        # > 0 enables the item MLP
     contextual_embedding_dim: int = 0  # > 0 enables the contextual MLP
     disable_contextual_mask: bool = False
-    recompute_layer: bool = False      # torch.utils.checkpoint each layer
+    recompute_layer: bool = False      # torch.utils.checkpoint each layer (dropout replayed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,3 +68,12 @@ class RankingConfig:
     prediction_head_act_type: str = "relu"
     prediction_head_bias: bool = True
     num_tasks: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    embedding_configs: Tuple[EmbeddingConfig, ...]
+    temperature: float = 0.05
+    l2_norm_eps: float = 1e-6
+    num_negatives: int = -1  # -1 => all in-batch
+    eval_metrics: Tuple[str, ...] = ("HR@10", "NDCG@10", "MRR")

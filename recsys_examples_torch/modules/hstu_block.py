@@ -182,14 +182,35 @@ class HSTUBlock(nn.Module):
         cfg = self.config
         jd = self.preprocessor(embeddings, batch, train, generator)
         remat = cfg.recompute_layer and train and torch.is_grad_enabled()
-        if remat and cfg.hidden_dropout > 0.0:
-            # checkpoint replays the default generators' state, not ours
-            raise NotImplementedError("recompute_layer with dropout is not ported yet")
         for layer in self.layers:
             if remat:
-                values = checkpoint(lambda x, layer=layer, jd=jd: layer(
-                    jd.replace(values=x), train).values, jd.values, use_reentrant=False)
-                jd = jd.replace(values=values)
+                jd = jd.replace(values=checkpoint(
+                    _replaying(layer, jd, train, generator), jd.values,
+                    use_reentrant=False))
             else:
                 jd = layer(jd, train, generator)
         return self.postprocessor(jd)
+
+
+def _replaying(layer: HSTULayer, jd: JaggedData, train: bool,
+               generator: Optional[torch.Generator]):
+    """The checkpointed function of one layer: values -> values.
+
+    `torch.utils.checkpoint` restores the default generators before the
+    recompute, not `generator`. So the forward draws its dropout bits from
+    `generator` itself (advancing it as an unrecomputed layer would), and
+    the recompute from a new generator set to the state `generator` had
+    before that forward: the same bits, so the same activations."""
+    state = None if generator is None else generator.get_state()
+    calls = 0
+
+    def run(values: torch.Tensor) -> torch.Tensor:
+        nonlocal calls
+        gen = generator
+        if calls and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        calls += 1
+        return layer(jd.replace(values=values), train, gen).values
+
+    return run

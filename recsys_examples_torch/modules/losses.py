@@ -1,6 +1,6 @@
-"""Ranking losses (counterpart of recsys_examples_tpu/modules/losses.py):
-multi-task BCE over bit-encoded labels, and cross-entropy. The retrieval
-loss waits with the retrieval model."""
+"""Losses (counterpart of recsys_examples_tpu/modules/losses.py): multi-task
+BCE over bit-encoded labels and cross-entropy for ranking, and the sampled
+softmax with in-batch negatives for retrieval."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -36,4 +36,23 @@ def cross_entropy_loss(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, labels[:, None].to(torch.int64))[:, 0] * valid.float()
+    return nll.sum(), valid.sum().float()
+
+
+def in_batch_sampled_softmax_loss(
+    query_emb: torch.Tensor,    # [N, D] L2-normalized user states
+    target_emb: torch.Tensor,   # [N, D] L2-normalized supervision item embs
+    target_ids: torch.Tensor,   # [N] int item ids (for dedup masking)
+    valid: torch.Tensor,        # [N] bool
+    temperature: float = 0.05,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sampled softmax with in-batch negatives: every valid row's target is
+    a negative for every other row, except rows of the same item id."""
+    logits = (query_emb.float() @ target_emb.float().T) / temperature
+    same_item = target_ids[:, None] == target_ids[None, :]
+    eye = torch.eye(logits.shape[0], dtype=torch.bool, device=logits.device)
+    # negatives: valid columns, not the positive, not an id collision
+    allowed = (valid[None, :] & ~same_item) | eye
+    logits = torch.where(allowed, logits, -1e9)
+    nll = -torch.diagonal(F.log_softmax(logits, dim=-1)) * valid.float()
     return nll.sum(), valid.sum().float()

@@ -5,10 +5,31 @@ the reference's `cal_hstu_flops_single_rank`, so MFU stays comparable with
 its published H100 table."""
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
+import torch
 
 # NVIDIA H100 SXM dense bf16 tensor-core peak (data sheet, 700 W)
 H100_PEAK_TFLOPS = 989.0
+# dense bf16 peaks by card name, most specific first (NVIDIA data sheets:
+# the sparse figures halved)
+_PEAK_TFLOPS_BY_NAME = (
+    ("H100 PCIe", 756.0),
+    ("H100 NVL", 835.0),
+    ("H100", H100_PEAK_TFLOPS),
+)
+
+
+def device_peak_tflops(device: Union[str, torch.device] = "cuda") -> float:
+    """Dense bf16 peak of the card `device` names, from its name; NaN for a
+    CPU device or a card not in the table (MFU is then not defined)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return float("nan")
+    name = torch.cuda.get_device_name(dev)
+    return next((peak for key, peak in _PEAK_TFLOPS_BY_NAME if key in name),
+                float("nan"))
 
 
 def hstu_flops_exact(
@@ -61,3 +82,25 @@ def hstu_flops_exact(
         other += S * H * D
 
     return float((attn + gemm + other).sum() * num_layers)
+
+
+def hstu_train_flops(
+    seqlens: np.ndarray,       # [B] preprocessed sequence lengths (tokens)
+    hidden_size: int,
+    num_heads: int,
+    head_dim: int,
+    num_layers: int,
+    *,
+    causal: bool = True,
+    fwd_only: bool = False,
+) -> float:
+    """Simplified causal-only FLOPs model (no contextual/candidate mask
+    structure), the one the training entries log; `hstu_flops_exact` keeps
+    the reference's accounting."""
+    n = seqlens.astype(np.float64)
+    D = hidden_size
+    Hdh = num_heads * head_dim
+    gemm = 2.0 * n * D * 4 * Hdh + 2.0 * n * Hdh * D
+    att = 2.0 * 2.0 * Hdh * (n ** 2) * (0.5 if causal else 1.0)
+    fwd = (gemm + att).sum() * num_layers
+    return float(fwd if fwd_only else 3.0 * fwd)

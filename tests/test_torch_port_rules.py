@@ -7,7 +7,16 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "recsys_examples_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recsys_examples_tpu")
+# the training entries' slice: torch, numpy and the standard library only
+# (the card's machine has no pandas)
+ENTRY_SLICE = (
+    "utils/gin_config.py", "training/gin_args.py", "utils/logger.py", "utils/watchdog.py",
+    "utils/perf.py", "modules/metrics.py", "utils/native.py", "data/sequence_dataset.py",
+    "data/batch_shuffler.py", "training/checkpoint.py", "modules/hstu_block.py",
+    "training/pretrain_gr_ranking.py", "modules/config.py", "modules/losses.py",
+    "models/retrieval_gr.py", "training/pretrain_gr_retrieval.py",
+)
 
 
 def _port_files():
@@ -211,3 +220,35 @@ def test_sid_gr_entry_points_default_to_cuda():
     assert init_beam(2, 3, 2, device="cpu").scores.device.type == "cpu"
     # the quantize helpers take no device: they run where their tensors lie
     assert pa.quantize_kv_pages(pages.float(), pages.float())[2].device.type == "cpu"
+
+
+def test_entry_slice_imports_torch_numpy_and_stdlib_only():
+    import sys
+
+    allowed = {"torch", "numpy", "recsys_examples_torch", "__future__"}
+    for rel in ENTRY_SLICE:
+        path = ROOT / "recsys_examples_torch" / rel
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top in allowed or top in sys.stdlib_module_names, f"{rel}: {name}"
+
+
+@pytest.mark.parametrize("entry", ["pretrain_gr_ranking", "pretrain_gr_retrieval"])
+def test_training_mains_default_to_cuda(entry, tmp_path):
+    """`main` without `--device cpu` raises on a machine without a card,
+    before it reads a file or builds a model."""
+    import importlib
+
+    from recsys_examples_torch.utils import gin_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    main = importlib.import_module(f"recsys_examples_torch.training.{entry}").main
+    cfg = tmp_path / "none.gin"
+    cfg.write_text("TrainerArgs.max_train_iters = 1\n")
+    gin_config.clear_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--gin-config-file", str(cfg)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--gin-config-file", str(cfg), "--device", "cuda:0"])
+    assert not gin_config._BINDINGS        # raised before parsing the file

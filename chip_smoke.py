@@ -147,12 +147,35 @@ Phases (any failure exits non-zero):
              (6,040 users, 3,706 movies, ~1M rows) through
              preprocess_movielens, SequenceDataset on the native packer and
              PrefetchIterator in the ranking entry at
-             ranking_movielens_1m.gin's widths: 20 steps (step 10 profiled)
+             ranking_movielens_1m.gin's widths: 12 steps (step 10 profiled)
              and an eval over the holdout; (d) the retrieval entry at retrieval_movielens_1m.gin's
-             widths over (c)'s file: 20 steps, HR@10, NDCG@10 and MRR finite
+             widths over (c)'s file: 12 steps, HR@10, NDCG@10 and MRR finite
              in [0, 1]; K1-K3 at 4 launches a step in both, and K1-K3
              against their plain versions (phase 5's check) at the lengths,
              mask and 4 x 64 heads of each entry's first attention call.
+ 15. cache   the embedding cache and its host tiers: (a) the ranking entry
+             with DynamicEmbeddingArgs.caching at 14a's full width over a
+             32,768-row item table and a 131,072-id vocabulary, 8 steps:
+             host onboards and evict flushes > 0, no insert failure, no batch
+             key left off the card by its prefetch, losses within 1e-5 of the
+             entry uncached at 524,288 rows, the prefetch's share of the
+             step, K1-K3 against their plain versions at its first attention
+             call; (d) its item table frozen: inference_lookup and the
+             exported program (torch.export, loaded back) equal forward_eval
+             bit for bit; (b) a cache over TieredHostStorage (4,096 RAM rows
+             of 14a's width over an SSD arena): rows come back through spill
+             and promote bit for bit; (c) pooled SUM and MEAN and grouped
+             tables at benchmark_dynamicemb.py's sizes (65,536 ids, 2,048
+             bags, dim 128, capacity 1 << 22) against separate lookups, with
+             step ms.
+ 16. kv      KV offload at phase 3's serving widths: a warmed user offloaded
+             to the host tier, evicted and onboarded, then two users through
+             a 1-user RAM tier over SSD (spill and promote); the warm call's
+             scores equal the never-evicted call's bit for bit; K6 launches.
+ 17. repairs the shapes the kernels once refused, against their plain
+             versions: K1-K5 at head dims 16, 48 and 96 (padded), K6 at head
+             dim 96 and page sizes 24, 48 and 100, bf16 and int8 pages, K6-int8
+             on fp32 queries, K7 at D 256 (GQA too) and D 96.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -348,7 +371,7 @@ def phase_tile_check():
                (32, 64, 128, 256)),
               ("K7", "beam_decode_attention", "beam_tile_check_launch",
                ("score (cp.async Q, 3-D TMA chunk, K-major)", "output (register A, MN-major)"),
-               (32, 64, 128)))
+               (32, 64, 128, 256)))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
     i8 = lambda *sh: torch.randint(-127, 128, sh, generator=gen, device="cuda",
@@ -2325,6 +2348,450 @@ def phase_quant_fwd(main_batch):
                 bound_by=bound_by, bf16_bound_ms=bf16_bound[0], launches=launches, k1_ms=ms_k1)
 
 
+# ---------------------------------------------------------------- phase 15
+class PrefetchWatch:
+    """While active, wraps the entry's cache's `prefetch`: the host time of
+    each prefetch (it ends on a host read of the device, so the clock sees
+    its device work), and the item keys each train step had to insert
+    (table counter `inserted` across the step: a batch key that the
+    prefetch left off the card)."""
+
+    def __enter__(self):
+        from recsys_examples_torch.dynamicemb.hybrid_storage import HybridDynamicEmbedding
+
+        self.cls, self.orig = HybridDynamicEmbedding, HybridDynamicEmbedding.prefetch
+        self.ms, self.step_inserts, self.after = [], [], None
+        watch = self
+
+        def spy(cache, state, keys):
+            now = int(state.table.inserted[0])
+            if watch.after is not None:
+                watch.step_inserts.append(now - watch.after)
+            t0 = time.perf_counter()
+            out = watch.orig(cache, state, keys)
+            watch.ms.append((time.perf_counter() - t0) * 1e3)
+            watch.after = int(state.table.inserted[0])
+            watch.state = state
+            return out
+
+        HybridDynamicEmbedding.prefetch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.prefetch = self.orig
+        if self.after is not None:   # the last step
+            self.step_inserts.append(int(self.state.table.inserted[0]) - self.after)
+
+
+def phase_cache_entry(tmp, ref_ms=None):
+    """15a. The ranking entry with `DynamicEmbeddingArgs.caching` at phase
+    14a's full width (ranking_kuairand_bench.gin: 8 layers, hidden 1024,
+    4 x 256, bf16, batch 32, history 2048, 128 candidates) over a 32,768-row
+    item table and a 131,072-id vocabulary: about 10k ids a step, so from
+    step 4 on every prefetch evicts to the host tier and onboards from it.
+    Held: host onboards and evict flushes > 0, no insert failure, no batch
+    key missing on the card after its prefetch (the train steps insert
+    nothing), losses within 1e-5 of the same entry uncached at 524,288 rows
+    on the same batches; K1-K3 against their plain versions at the entry's
+    first attention call. Returns the run's numbers and its final state."""
+    from recsys_examples_torch.training import pretrain_gr_ranking as rank
+
+    tag = "phase15a"
+    steps = 8
+    common = [f"TrainerArgs.max_train_iters = {steps}", "TrainerArgs.log_interval = 1",
+              "TrainerArgs.eval_iters = 1", "DatasetArgs.item_vocab_size = 131072"]
+    cached_gin = entry_gin(tmp, "cached.gin", "ranking_kuairand_bench.gin", common + [
+        "DynamicEmbeddingArgs.caching = True", "DynamicEmbeddingArgs.capacity = 32768"])
+    plain_gin = entry_gin(tmp, "uncached.gin", "ranking_kuairand_bench.gin", common + [
+        "DynamicEmbeddingArgs.capacity = 524288"])
+    with FirstAttentionCall() as first, PrefetchWatch() as watch:
+        state, launches, entry_log, seconds = run_entry(rank.main, cached_gin)
+    cache = rank.LAST_CACHE
+    rows = log_entry_steps(tag, entry_log, steps)
+    check_launches(tag, launches, 8, steps, 1)
+    ref_state, _, ref_log, _ = run_entry(rank.main, plain_gin)
+    del ref_state
+    ref_rows = ref_log.steps()
+    losses, ref_losses = [r[1] for r in rows], [r[1] for r in ref_rows]
+    step_ms = statistics.median(r[2] for r in rows[1:])
+    ref_step_ms = statistics.median(r[2] for r in ref_rows[1:])
+    pre_ms = statistics.median(watch.ms[1:])
+    log(f"{tag} config: ranking_kuairand_bench.gin, caching, item table 32768 x 1024 "
+        f"(rowwise adagrad: {cache.table.value_dim} floats a row) over a host tier, "
+        f"131072-id vocabulary; main() took {seconds:.1f} s; cache stats {cache.stats}, "
+        f"hit rate {cache.hit_rate():.4f}, host tier {len(cache.host)} rows")
+    log(f"{tag} prefetch host ms per step {[round(x, 2) for x in watch.ms]} (median after "
+        f"the first {pre_ms:.2f}, {100 * pre_ms / step_ms:.1f}% of the step); train-step "
+        f"inserts per step {watch.step_inserts}")
+    log(f"{tag} step_ms median after the first {step_ms:.1f} (uncached at 524288 rows, "
+        f"same batches: {ref_step_ms:.1f}; phase 14a at 4194304 rows: "
+        f"{'not run' if ref_ms is None else f'{ref_ms:.1f}'}); losses {losses}, uncached "
+        f"{ref_losses}")
+    st = cache.stats
+    if not (st["host_onboards"] > 0 and st["evict_flushes"] > 0 and st["insert_failures"] == 0):
+        raise SystemExit(f"{tag}: the cache did not evict and onboard cleanly: {st}")
+    if len(watch.step_inserts) != steps or any(watch.step_inserts):
+        raise SystemExit(f"{tag}: a train step inserted keys its prefetch left off the "
+                         f"card: {watch.step_inserts}")
+    if len(ref_losses) != steps or any(abs(a - b) > 1e-5 + 1e-9
+                                       for a, b in zip(losses, ref_losses)):
+        raise SystemExit(f"{tag}: the cached entry's losses left the uncached ones")
+    check_main_path_attention(tag, first.call, 4, 256)
+    return dict(step_ms=step_ms, ref_step_ms=ref_step_ms, prefetch_ms=pre_ms,
+                stats=dict(st), launches=launches), state.sparse["item"], cache
+
+
+def phase_tiered_roundtrip(tmp, value_dim):
+    """15b. An embedding cache of 8,192 rows (14a's row: 1024 + the
+    optimizer's) over a TieredHostStorage of 4,096 RAM rows and an SSD arena
+    in a temp dir: 6,000 keys trained, two waves of 6,000 others push them
+    to the host tier and down to SSD, then a prefetch brings them back
+    through spill and promote. Their rows and optimizer rows must equal the
+    ones that went out, bit for bit."""
+    from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbeddingTable
+    from recsys_examples_torch.dynamicemb.dynamicemb_config import DynamicEmbTableOptions
+    from recsys_examples_torch.dynamicemb.hashtable import lookup
+    from recsys_examples_torch.dynamicemb.hybrid_storage import HybridDynamicEmbedding
+    from recsys_examples_torch.dynamicemb.optimizer import SparseOptimizerArgs
+    from recsys_examples_torch.dynamicemb.tiered_storage import TieredHostStorage
+
+    tag = "phase15b"
+    t0 = time.perf_counter()
+    table = DynamicEmbeddingTable(DynamicEmbTableOptions(embedding_dim=1024, max_capacity=8192),
+                                  SparseOptimizerArgs(optimizer="rowwise_adagrad"))
+    assert table.value_dim == value_dim
+    tiered = TieredHostStorage(value_dim, ram_capacity=4096,
+                               ssd_path=os.path.join(tmp, "emb_ssd.bin"), ssd_capacity=16384)
+    cache = HybridDynamicEmbedding(table, host_storage=tiered)
+    state = cache.init_state()
+    rng = np.random.default_rng(SEED + 15)
+    waves = rng.choice(1 << 40, 18000, replace=False).astype(np.int64).reshape(3, 6000)
+    for i, keys in enumerate(waves):
+        cache.prefetch(state, keys)
+        kt = torch.from_numpy(np.sort(keys)).cuda()
+        state, slots, _ = table.forward_train(state, kt)
+        table.backward(state, slots, torch.randn(len(keys), 1024, device="cuda"), keys=kt)
+        if i == 0:
+            out = torch.cat([state.table.values[slots], state.table.opt[slots]], 1).clone()
+    back = torch.from_numpy(np.sort(waves[0])).cuda()
+    _, found = lookup(state.table, back)
+    gone = int((~found).sum())
+    cache.prefetch(state, waves[0])
+    slots, found = lookup(state.table, back)
+    got = torch.cat([state.table.values[slots], state.table.opt[slots]], 1)
+    same = bool(found.all()) and torch.equal(got, out)
+    log(f"{tag} {gone} of 6000 keys had left the card; tiered stats {tiered.stats}, RAM "
+        f"{tiered.ram_len} rows, SSD {tiered.ssd_len} rows; cache stats {cache.stats}; the "
+        f"rows came back bit for bit: {same}; {time.perf_counter() - t0:.1f} s")
+    if not (same and gone > 0 and tiered.stats["ssd_spills"] > 0
+            and tiered.stats["ssd_hits"] > 0):
+        raise SystemExit(f"{tag}: the tiered round trip lost or changed rows")
+
+
+def phase_pooled_grouped():
+    """15c. Pooled and grouped tables at benchmarks/benchmark_dynamicemb.py's
+    on-accelerator sizes: 65,536 ids in 2,048 bags of 32, dim 128, capacity
+    1 << 22 (rowwise adagrad). SUM and MEAN must equal the bag sums of the
+    per-token rows of separate lookups (`torch.segment_reduce`); the grouped
+    table (two features of 32,768 ids) each feature's rows of the inner
+    table's own lookup. Train step ms (forward + backward)."""
+    from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbeddingTable
+    from recsys_examples_torch.dynamicemb.dynamicemb_config import DynamicEmbTableOptions
+    from recsys_examples_torch.dynamicemb.optimizer import SparseOptimizerArgs
+    from recsys_examples_torch.dynamicemb.pooled import PooledDynamicEmbedding, PoolingMode
+    from recsys_examples_torch.dynamicemb.sharded_collection import (
+        GroupedShardedDynamicEmbedding, ShardedDynamicEmbedding)
+
+    tag = "phase15c"
+    n_ids, B, dim = 65536, 2048, 128
+    rng = np.random.default_rng(SEED + 16)
+    # the benchmark's ids: Zipf(1.1) folded into 4 x the capacity
+    ids = torch.from_numpy(rng.zipf(1.1, n_ids).astype(np.int64) % (4 << 22)).cuda()
+    offsets = torch.arange(B + 1, device="cuda", dtype=torch.int32) * (n_ids // B)
+    res = {}
+
+    def make():
+        return DynamicEmbeddingTable(
+            DynamicEmbTableOptions(embedding_dim=dim, max_capacity=1 << 22),
+            SparseOptimizerArgs(optimizer="rowwise_adagrad"))
+
+    for mode in (PoolingMode.SUM, PoolingMode.MEAN):
+        inner = ShardedDynamicEmbedding(make())
+        pe = PooledDynamicEmbedding(inner, mode)
+        state = pe.init_state()
+        g = torch.randn(B, dim, device="cuda")
+
+        def step():
+            st, pooled, r = pe.forward(state, ids, offsets)
+            pe.backward(st, r, g)
+            return pooled
+
+        step()
+        ms = median_time_ms(step, 5)
+        _, pooled, _ = pe.forward(state, ids, offsets, train=False)
+        _, rows, _ = inner.forward(state, ids, train=False)
+        want = torch.segment_reduce(rows, "sum", lengths=offsets.diff())
+        if mode == PoolingMode.MEAN:
+            want = want / (n_ids // B)
+        err = (pooled - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"{tag} pooled {mode}: {n_ids} ids in {B} bags, dim {dim}: train step "
+            f"(forward + backward) {ms:.3f} ms; against the bag sums of the per-token rows "
+            f"max_abs_err={err:.3e} of max {scale:.3e} (limit 1e-5 * max + 1e-6)")
+        if not err <= 1e-5 * scale + 1e-6:
+            raise SystemExit(f"{tag}: the pooled {mode} forward disagrees")
+        res[mode] = ms
+    grouped = GroupedShardedDynamicEmbedding(make(), ("item", "user"))
+    state = grouped.init_state()
+    feats = {"item": ids[:n_ids // 2], "user": ids[n_ids // 2:]}
+    grads = {k: torch.randn(v.shape[0], dim, device="cuda") for k, v in feats.items()}
+
+    def gstep():
+        st, emb, r = grouped.forward(state, feats)
+        grouped.backward(st, r, grads)
+        return emb
+
+    gstep()
+    ms = median_time_ms(gstep, 5)
+    _, emb, _ = grouped.forward(state, feats, train=False)
+    ok = True
+    for i, (k, v) in enumerate(feats.items()):
+        _, want, _ = grouped.inner.forward(state, grouped._compose(v, i), train=False)
+        ok &= torch.equal(emb[k], want)
+    log(f"{tag} grouped (item, user: 32768 ids each in one table): train step {ms:.3f} ms; "
+        f"rows equal the inner table's lookup of the tagged keys: {ok}")
+    if not ok:
+        raise SystemExit(f"{tag}: the grouped forward disagrees")
+    res["grouped"] = ms
+    return res
+
+
+def phase_frozen(table, state):
+    """15d. 15a's item table frozen: `inference_lookup` and the exported
+    program (`export_serialized`, loaded back) against `forward_eval`, for
+    the table's keys and a few it lacks, bit for bit."""
+    from recsys_examples_torch.dynamicemb import exportable_tables as ex
+    from recsys_examples_torch.dynamicemb.dynamicemb_config import EMPTY_KEY
+
+    tag = "phase15d"
+    keys = state.table.keys.reshape(-1)
+    keys = keys[keys != EMPTY_KEY]
+    probe = torch.cat([keys, torch.tensor([-5, 1 << 50], device="cuda")])
+    frozen = ex.freeze_table(None, state)
+    t0 = time.perf_counter()
+    blob = ex.export_serialized(frozen, sample_n=probe.shape[0])
+    export_s = time.perf_counter() - t0
+    prog = ex.load_serialized(blob)
+    want = table.forward_eval(state, probe)
+    got = ex.inference_lookup(frozen, probe)
+    out = prog.module()(probe)
+    ok = torch.equal(got, want) and torch.equal(out, want)
+    log(f"{tag} {keys.shape[0]} keys + 2 absent: inference_lookup and the exported "
+        f"program ({len(blob) / 2**20:.1f} MiB, exported in {export_s:.1f} s) equal "
+        f"forward_eval bit for bit: {ok}")
+    if not ok:
+        raise SystemExit(f"{tag}: the frozen table disagrees with forward_eval")
+
+
+def phase_cache(ref_ms=None):
+    """Phase 15: the embedding cache and its host tiers on the card."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    t0 = time.perf_counter()
+    try:
+        res, state, cache = phase_cache_entry(tmp, ref_ms)
+        phase_frozen(cache.table, state)
+        del state, cache
+        torch.cuda.empty_cache()
+        phase_tiered_roundtrip(tmp, 1025)
+        res["pooled"] = phase_pooled_grouped()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase15 took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------- phase 16
+def phase_kv_offload(attn):
+    """16. KV offload at phase 3's serving widths
+    (benchmarks/benchmark_hstu_inference.py's defaults: HSTUConfig(), 8
+    users of 2048 history tokens and 128 candidates): warm the users, then
+    offload a user to the host tier, evict it and onboard it back; the warm
+    call must give the never-evicted call's scores bit for bit (K6's split
+    depends on the lengths, not the page ids). Again with
+    ram_capacity_users 1 and an SSD dir: two users offloaded (the first
+    spills), evicted, onboarded (the first promoted back). K6's launches."""
+    import shutil
+    import tempfile
+
+    from recsys_examples_torch.inference.inference_ranking_gr import (
+        InferenceDenseModule, InferenceRankingGR)
+    from recsys_examples_torch.inference.kvcache import (
+        HostKVStorage, KVCacheConfig, evict_users, lookup_kvcache)
+    from recsys_examples_torch.modules.config import HSTUConfig
+
+    tag = "phase16"
+    t0 = time.perf_counter()
+    cfg = HSTUConfig()
+    B, hist, cand, chunk = 8, 2048, 128, 512
+    S = hist + cand
+    maxp = (S + 127) // 128 + 1
+    kv_cfg = KVCacheConfig(
+        num_layers=cfg.num_layers, num_heads=cfg.num_attention_heads,
+        head_dim=cfg.kv_channels, page_size=128, num_pages=B * maxp * 2,
+        max_users=B * 4, max_pages_per_user=maxp, dtype=cfg.dtype)
+    table, _ = build_table(512, 128, cfg.hidden_size, 32768, SEED + 1)
+    dense = InferenceDenseModule(cfg, (512, 1)).init_weights(torch.Generator().manual_seed(SEED))
+    runner = InferenceRankingGR(cfg, kv_cfg, dense, table, device="cuda")
+    rng = np.random.default_rng(SEED)
+    users = np.arange(1, B + 1, dtype=np.int64)
+    seq = rng.integers(1, 32768, size=(B, S)).astype(np.int64)
+    lens = np.full((B,), S, np.int32)
+    ncand = np.full((B,), cand, np.int32)
+    runner.init_cache()
+    for lo in range(0, S, chunk):
+        runner.forward_with_kvcache(users, seq, np.minimum(lens, lo + chunk),
+                                    ncand if lo + chunk >= S else None, chunk)
+    warm = lambda: runner.forward_with_kvcache(users, seq, lens, ncand, cand)[0]
+    want = warm()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kv_")
+    attn.paged_hstu_delta_attention.launches = 0
+    try:
+        for name, host, moved in (
+                ("RAM", HostKVStorage(kv_cfg), [4]),
+                ("RAM 1 user + SSD", HostKVStorage(kv_cfg, ram_capacity_users=1, ssd_dir=tmp),
+                 [2, 7])):
+            t1 = time.perf_counter()
+            for u in moved:
+                host.offload(runner.kv_state, u)
+            runner.kv_state = evict_users(runner.kv_state, torch.tensor(moved, device="cuda"))
+            gone = lookup_kvcache(runner.kv_state, torch.tensor(moved, device="cuda"))[0]
+            for u in moved:
+                runner.kv_state = host.onboard(runner.kv_state, u)
+            torch.cuda.synchronize()
+            move_s = time.perf_counter() - t1
+            _, cached = lookup_kvcache(runner.kv_state, torch.tensor(moved, device="cuda"))
+            got = warm()
+            same = torch.equal(got, want)
+            log(f"{tag} {name}: users {moved} offloaded ({host._elems_per_token * 2048 * 4 / 2**20:.0f} "
+                f"MiB a user as float32), evicted (slots after {gone.tolist()}), onboarded "
+                f"(cached {cached.tolist()}) in {move_s:.2f} s; host stats {host.stats}; the "
+                f"warm call's scores equal the never-evicted call's bit for bit: {same}")
+            if not (same and bool((gone < 0).all()) and bool((cached == hist).all())):
+                raise SystemExit(f"{tag}: the onboarded users' scores changed ({name})")
+            if name != "RAM" and not (host.stats["ssd_spills"] and host.stats["ssd_hits"]):
+                raise SystemExit(f"{tag}: the SSD tier was not used: {host.stats}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = attn.paged_hstu_delta_attention.launches
+    log(f"{tag} K6 launches over the two warm calls: {launches} (expected "
+        f"{2 * cfg.num_layers}); {time.perf_counter() - t0:.1f} s")
+    if launches != 2 * cfg.num_layers:
+        raise SystemExit(f"{tag}: K6 did not carry the warm calls")
+    del runner
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+# ---------------------------------------------------------------- phase 17
+def phase_repairs(attn):
+    """17. The shapes and modes the kernels once refused, each against its
+    plain version with its phase's tolerance: K1-K3 (forward, dq, dk, dv)
+    and K4 at head dims 16, 48 and 96 (zero-padded by the wrappers to 32,
+    64 and 128), K5 at the same; K6 at head dim 96 and at page sizes 24 and
+    48 (chunks of 48 keys, no box across an 8-row swizzle atom) and 100 (a
+    64-key chunk and a 36-key remainder a page), bf16 and int8 pages; K6-int8
+    on fp32 queries; K7 at its D 256 instance (H 8 = Hkv, and GQA 8 over 2)
+    and at D 96 (padded to 128). Returns K7's D 256 step (timed) and the
+    launches of its drive."""
+    from recsys_examples_torch.ops import beam_decode_attention as bda
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.ops.hstu_attention_ref import hstu_mha_int8_reference
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")
+    errs = []
+    for dh in (16, 48, 96):
+        r = check_jagged_case(f"dh{dh}", gen, [77, 0, 300, 5, 129], 2, dh, 320,
+                              dict(target_group_size=3), [2, 0, 70, 0, 1], [9, 0, 31, 2, 3],
+                              phase="phase17")
+        errs.append(r["err"])
+        r = check_jagged_case(f"rab_dh{dh}", gen, [77, 0, 300, 5], 2, dh, 320,
+                              dict(target_group_size=3), [2, 0, 1, 0], [9, 0, 31, 2],
+                              rab_shape=(4, 1, 320, 323), phase="phase17")
+        errs.append(r["err"])
+        # K5
+        q, k, v, _, offsets = attention_operands(gen, [300, 129, 1, 64], 2, dh, pad=0)
+        (q8, sq), (k8, sk), (v8, sv) = (ha.quantize_per_tensor(x) for x in (q, k, v))
+        mask = dict(num_contextuals=i32([70, 0, 1, 3]), num_targets=i32([9, 5, 0, 2]),
+                    target_group_size=2)
+        got = ha.hstu_attn_varlen_quantized_calibrated(q8, k8, v8, sq, sk, sv, offsets, 320,
+                                                       alpha=dh ** -0.5, **mask)
+        want = hstu_mha_int8_reference(320, dh ** -0.5, q8, k8, v8, sq, sk, sv, offsets, **mask)
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        log(f"phase17 fwd_int8 dh{dh}: max_abs_err={err:.3e} tol={2e-2 * ref + 1e-3:.3e} "
+            "(2e-2*max|ref|+1e-3)")
+        if not within(err, ref) or got.shape[-1] != dh:
+            raise SystemExit(f"phase17: K5 disagrees at head dim {dh}")
+        errs.append(err)
+    # K6: a padded head dim, page sizes off the 8/16/32/64k set, bf16 and int8
+    paged = {
+        "dh96_pg128": attention_case(gen, 4, 72, 2, 96, 128, 17, [2048, 0, 1000, 333],
+                                     [72, 72, 5, 64], [8, 0, 5, 0], unset=[(0, 7)]),
+        "dh128_pg24": attention_case(gen, 4, 72, 2, 128, 24, 90, [2048, 0, 1000, 335],
+                                     [72, 72, 5, 64], [8, 0, 5, 0], unset=[(0, 7), (2, 20)]),
+        "dh64_pg48_s8": attention_case(gen, 4, 8, 4, 64, 48, 43, [2000, 47, 1000, 0],
+                                       [8, 8, 3, 8], None, unset=[(0, 11)]),
+        "dh256_pg100_s128": attention_case(gen, 2, 128, 4, 256, 100, 21, [2048, 637],
+                                           [128, 100], [16, 0], unset=[(0, 3)]),
+    }
+    for name, c in paged.items():
+        errs.append(check_case(attn, name, c, scaling=2100)["err"])
+        k8, v8, ks, vs = attn.quantize_kv_pages(c["k_pages"], c["v_pages"])
+        args = [c[x] for x in ("q", "k_pages", "v_pages", "page_table", "cached_len", "new_k",
+                               "new_v", "new_lens", "num_targets")]
+        args[1], args[2] = k8, v8
+        deq = list(args)
+        deq[1], deq[2] = k8.float() * ks[..., None], v8.float() * vs[..., None]
+        alpha = c["q"].shape[-1] ** -0.5
+        for qdt in (torch.bfloat16, torch.float32):
+            a = list(args)
+            d = list(deq)
+            for i in (0, 5, 6):
+                a[i] = d[i] = args[i].to(qdt)
+            got = attn.paged_hstu_delta_attention(*a, alpha, 2100.0, k_scales=ks, v_scales=vs)
+            want = attn.paged_hstu_delta_attention_ref(*d, alpha, 2100.0)
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            zeros = padded_rows_zero(got, c["new_lens"])
+            log(f"phase17 paged_int8 {name} q {str(qdt)[6:]}: max_abs_err={err:.3e} "
+                f"tol={2e-2 * ref + 1e-3:.3e} (2e-2*max|ref|+1e-3) padded_rows_zero={zeros}")
+            if not (within(err, ref) and zeros and got.dtype == qdt):
+                raise SystemExit(f"phase17: K6-int8 disagrees at {name}, q {qdt}")
+            errs.append(err)
+    # K7 at D 256 (timed: the kernels line's D 256 row) and GQA; D 96 padded
+    lens = [1025, 700, 1, 0, 513, 1024, 64, 65]
+    c = beam_case(gen, 8, 64, 8, 8, 256, 1025, 3, lens)
+    bda.beam_decode_attn.launches = 0     # the drive: one call through the wrapper
+    bda.beam_decode_attn(*beam_args(c), sm_scale=256 ** -0.5)
+    torch.cuda.synchronize()
+    launches = bda.beam_decode_attn.launches
+    step = check_beam_case("d256", c, iters=10)
+    step["launches"] = launches
+    for name, c in (("d256_gqa4", beam_case(gen, 4, 200, 8, 2, 256, 600, 2, [600, 1, 333, 64])),
+                    ("d256_n0", beam_case(gen, 2, 7, 2, 2, 256, 130, 0, [130, 65])),
+                    ("d96_gqa2", beam_case(gen, 3, 64, 4, 2, 96, 200, 2, [200, 0, 77]))):
+        errs.append(check_beam_case(name, c, timed=False)["err"])
+    step["repair_err"] = max(errs)
+    log(f"phase17 took {time.perf_counter() - t0:.1f} s")
+    return step
+
+
 # ---------------------------------------------------------------- phase 14
 CONFIGS = Path(__file__).resolve().parent / "configs"
 ENTRY_LINE = re.compile(r"^iter (\d+): loss=(\S+) step=(\S+)ms tflops=(\S+) mfu=(\S+)%")
@@ -2656,14 +3123,16 @@ def write_ml1m_ratings(path, seed=SEED):
     users = np.repeat(np.arange(1, 6041), counts)
     ratings = rng.choice(np.arange(1, 6), len(users), p=[0.056, 0.108, 0.261, 0.349, 0.226])
     ts = 956703932 + rng.integers(0, 10 ** 8, len(users))
-    np.savetxt(path, np.stack([users, items, ratings, ts], 1), fmt="%d::%d::%d::%d")
+    rows = np.stack([users, items, ratings, ts], 1)
+    with open(path, "w") as f:     # one formatting pass: np.savetxt takes ~3 s here
+        f.write(("%d::%d::%d::%d\n" * len(rows)) % tuple(rows.ravel().tolist()))
     return len(users), len(np.unique(items))
 
 
 def phase_entry_movielens(tmp):
     """(c) The file-backed ranking path at configs/ranking_movielens_1m.gin's
     widths over a synthetic ratings.dat: preprocess, then main() through
-    SequenceDataset, the native packer and PrefetchIterator, 20 steps and
+    SequenceDataset, the native packer and PrefetchIterator, 12 steps and
     an eval over the whole holdout; then K1-K3 against their plain versions
     at the shape and mask of the entry's first attention call."""
     from recsys_examples_torch.data import sequence_dataset as sd
@@ -2681,7 +3150,7 @@ def phase_entry_movielens(tmp):
     lib = native.batch_assembler_lib()
     if lib is None:
         raise SystemExit(f"{tag}: the native packer did not build: {native.BUILD_ERRORS}")
-    steps, users = 20, len(data["user_ids"])
+    steps, users = 12, len(data["user_ids"])
     gin = entry_gin(tmp, "ml_ranking.gin", "ranking_movielens_1m.gin", [
         f'DatasetArgs.dataset_path = "{npz}"', f"TrainerArgs.max_train_iters = {steps}",
         "TrainerArgs.log_interval = 1", "TrainerArgs.eval_interval = 0",
@@ -2710,12 +3179,12 @@ def phase_entry_movielens(tmp):
 
 def phase_entry_retrieval(tmp, npz):
     """(d) The retrieval entry at configs/retrieval_movielens_1m.gin's widths
-    over (c)'s file: 20 steps and an eval over the whole holdout; then K1-K3
+    over (c)'s file: 12 steps and an eval over the whole holdout; then K1-K3
     against their plain versions at the entry's first attention call."""
     from recsys_examples_torch.training import pretrain_gr_retrieval as ret
 
     tag = "phase14d"
-    steps = 20
+    steps = 12
     gin = entry_gin(tmp, "ml_retrieval.gin", "retrieval_movielens_1m.gin", [
         f'DatasetArgs.dataset_path = "{npz}"', f"TrainerArgs.max_train_iters = {steps}",
         "TrainerArgs.log_interval = 1", "TrainerArgs.eval_interval = 0", *PROFILED])
@@ -2769,25 +3238,35 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} numpy {np.__version__} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    phase_build()
-    phase_tile_check()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[{name} took {time.perf_counter() - t0:.1f} s]")
+        return out
 
-    res = {"paged": phase_kernel(attn)}
-    runner, res["serve"] = phase_main(attn)
-    phase_serve(runner, attn)
+    timed("phase 1", phase_build)
+    timed("phase 1b", phase_tile_check)
+    t_phases = time.perf_counter()
+
+    res = {"paged": timed("phase 2", phase_kernel, attn)}
+    runner, res["serve"] = timed("phase 3", phase_main, attn)
+    timed("phase 4", phase_serve, runner, attn)
     del runner
     torch.cuda.empty_cache()
-    res["jagged"] = phase_jagged()
-    res["train"] = phase_train()
-    phase_tables()
-    res["rab"] = phase_rab()
-    launches_9a, res["rab_shape"], host0 = phase_full_step()
-    res["beam"] = phase_beam()
-    res["sid"] = phase_sid()
-    phase_sid_serve()
-    res["paged_int8"], paged_int8_launches = phase_quant_paged(attn)
-    res["fwd_int8"] = phase_quant_fwd(host0)
-    res["entries"] = phase_entries()
+    res["jagged"] = timed("phase 5", phase_jagged)
+    res["train"] = timed("phase 6", phase_train)
+    timed("phase 7", phase_tables)
+    res["rab"] = timed("phase 8", phase_rab)
+    launches_9a, res["rab_shape"], host0 = timed("phase 9", phase_full_step)
+    res["beam"] = timed("phase 10", phase_beam)
+    res["sid"] = timed("phase 11", phase_sid)
+    timed("phase 12", phase_sid_serve)
+    res["paged_int8"], paged_int8_launches = timed("phase 13a", phase_quant_paged, attn)
+    res["fwd_int8"] = timed("phase 13b", phase_quant_fwd, host0)
+    res["entries"] = timed("phase 14", phase_entries)
+    res["cache"] = timed("phase 15", phase_cache, res["entries"]["ranking"]["step_ms"])
+    res["kv_offload"] = timed("phase 16", phase_kv_offload, attn)
+    res["repairs"] = timed("phase 17", phase_repairs, attn)
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -2860,6 +3339,21 @@ def main():
         "bound_by": step["bound_by"],
         "library_ms": None,
     })
+    d256 = res["repairs"]                # phase 17's D 256 step
+    kernels.append({
+        "name": "beam_decode_attn_d256",
+        "route": "cuda",
+        "source": "recsys_examples_torch/csrc/beam_decode_attention.cu",
+        "replaces": "recsys_examples_tpu/ops/pallas/beam_decode_attention.py:235",
+        "launches": d256["launches"],               # phase 17's D 256 drive
+        "max_abs_err": d256["err"],
+        "ms": d256["kernel_ms"],
+        "device_ms": d256["device_ms"],
+        "plain_ms": d256["plain_ms"],
+        "bound_ms": d256["bound_ms"],
+        "bound_by": d256["bound_by"],
+        "library_ms": None,
+    })
     fwd8 = res["fwd_int8"]
     kernels.append({
         "name": "hstu_attn_fwd_int8",
@@ -2889,7 +3383,8 @@ def main():
         "bound_by": paged8["bound_by"],
         "library_ms": None,
     })
-    log(f"phases took {time.perf_counter() - t_start:.1f} s")
+    log(f"phases took {time.perf_counter() - t_phases:.1f} s after the build "
+        f"({time.perf_counter() - t_start:.1f} s in all)")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -90,8 +90,12 @@
 //    Deterministic: no workspace in device memory, no atomics; with one
 //    split the merge is O / l.
 //  - Warp specialisation: 384 threads, 168 registers a thread at entry;
-//    setmaxnreg gives the consumers 216 and the producer's warpgroup 72.
-//    Shared memory at D 128: Q 32 KB and 5 stages of K + V (160 KB).
+//    setmaxnreg gives the consumers 216 and the producer's warpgroup 72
+//    (at D 256: 224 and 56, O alone being 128 sums a consumer thread).
+//    Shared memory at D 128: Q 32 KB and 5 stages of K + V (160 KB); at D
+//    256: Q 64 KB and 2 stages (128 KB), the merge's fp32 O (133 KB) where
+//    they were. Head dims 32, 64, 128 and 256 are built; the wrapper pads
+//    others to the next.
 // Positions in [ctx_len, S) of the last context chunk are read and masked:
 // like the plain version, which multiplies their zero probabilities by V,
 // that assumes finite contents (the model's context comes from its prefill).
@@ -131,7 +135,10 @@ constexpr int NC = 2;                   // consumer warpgroups (BEAM_CONSUMERS)
 constexpr int QR = sm90::TILE_ROWS;     // query rows per consumer (BEAM_ROWS)
 constexpr int CTA_ROWS = NC * QR;       // BEAM_CTA_ROWS
 constexpr int CK = 64;                  // context keys per chunk (BEAM_CHUNK)
-constexpr int STAGES = 320 / CK;        // chunks in flight
+// chunks in flight: 5 (a stage of K + V is 32 KB at DH 128); 2 at DH 256
+// (64 KB a stage, beside 64 KB of Q)
+template <int DH>
+constexpr int stages() { return DH == 256 ? 2 : 320 / CK; }
 constexpr int TPC = QR / CK;            // tail chunks of a consumer per step
 constexpr int THREADS = 128 * (NC + 1);
 constexpr int OPAD = 4;                 // fp32 words of padding per row of O
@@ -139,11 +146,15 @@ constexpr int OPAD = 4;                 // fp32 words of padding per row of O
 constexpr int CONSUMERS_DONE = 1, PRODUCER_READY = 2, GATHERED = 3, Q_READY = 4;   // + consumer
 
 // setmaxnreg's split of the registers a thread holds at entry: the
-// consumers hold O's DH / 2 sums, the score's CK / 2 and P's CK / 4.
+// consumers hold O's DH / 2 sums, the score's CK / 2 and P's CK / 4 (at DH
+// 256: 128 + 32 + 16 of 224).
 constexpr int ENTRY = 65536 / THREADS / 8 * 8;
-constexpr int CONSUMER = NC == 2 ? 216 : 112;
-constexpr int PRODUCER = NC == 2 ? 72 : 32;
-static_assert(NC * 128 * CONSUMER + 128 * PRODUCER <= ENTRY * THREADS, "");
+template <int DH>
+struct Regs {
+  static constexpr int CONSUMER = DH == 256 ? 224 : 216;
+  static constexpr int PRODUCER = DH == 256 ? 56 : 72;
+  static_assert(NC == 2 && NC * 128 * CONSUMER + 128 * PRODUCER <= ENTRY * THREADS, "");
+};
 
 // Shared memory after the ring's barriers, from a 1024-byte boundary: the
 // consumers' Q tiles, then STAGES stages of (K tile, V tile) of CK rows.
@@ -155,6 +166,7 @@ struct Smem {
   using KT = Tile<DH, CK>;
   static constexpr int STAGE = 2 * KT::BYTES;
   static constexpr int KV = NC * QT::BYTES;
+  static constexpr int STAGES = stages<DH>();
   static constexpr int END = KV + STAGES * STAGE;
   static constexpr int LD = DH + OPAD;
   static constexpr int ML = CTA_ROWS * LD * 4;
@@ -213,9 +225,10 @@ template <int DH>
 __device__ __forceinline__ void produce(const Maps& m, const Args& a, const Cta& T,
                                         const bf16* __restrict__ k_beam,
                                         const bf16* __restrict__ v_beam, unsigned char* tiles,
-                                        sm90::Ring<STAGES>* ring, int pt) {
+                                        sm90::Ring<Smem<DH>::STAGES>* ring, int pt) {
   using S = Smem<DH>;
   using KT = typename S::KT;
+  constexpr int STAGES = S::STAGES;
   const int nc = T.c_end - T.c_begin;
   if (pt == 0) {
     for (int u = 0; u < nc; ++u) {
@@ -398,6 +411,7 @@ beam_wgmma_kernel(const __grid_constant__ Maps m, const bf16* __restrict__ q,
   using KT = typename S::KT;
   using O = sm90::Out<DH>;
   extern __shared__ unsigned char smem_raw[];
+  constexpr int STAGES = S::STAGES;
   auto* ring = reinterpret_cast<sm90::Ring<STAGES>*>(smem_raw);
   int* row_b = reinterpret_cast<int*>(smem_raw + sizeof(sm90::Ring<STAGES>));
   unsigned char* tiles = sm90::align1024(smem_raw + S::HEAD);
@@ -416,14 +430,14 @@ beam_wgmma_kernel(const __grid_constant__ Maps m, const bf16* __restrict__ q,
 
   const int wg = threadIdx.x / 128;
   if (wg == NC) {   // the producer's warpgroup
-    sm90::setmaxnreg_dec<PRODUCER>();
+    sm90::setmaxnreg_dec<Regs<DH>::PRODUCER>();
     produce<DH>(m, a, T, k_beam, v_beam, tiles, ring, threadIdx.x - NC * 128);
     sm90::cluster_sync();   // every CTA's (m, l, O) is in its shared memory
     sm90::cluster_sync();   // and stays there until the cluster has read it
     return;
   }
   // consumers
-  sm90::setmaxnreg_inc<CONSUMER>();
+  sm90::setmaxnreg_inc<Regs<DH>::CONSUMER>();
   const int t = threadIdx.x % 128;
   const int rq = T.r0 + wg * QR;                // the consumer's first row
   const bool live = rq < T.r1;
@@ -822,6 +836,7 @@ int cluster_capacity(int splits) {
     case 32: { constexpr int DH = 32; return CALL; }    \
     case 64: { constexpr int DH = 64; return CALL; }    \
     case 128: { constexpr int DH = 128; return CALL; }  \
+    case 256: { constexpr int DH = 256; return CALL; }  \
     default: return -1;                                 \
   }
 

@@ -59,10 +59,15 @@
 //  - Paged TMA. One 2-D map over the layer's pool viewed as [P pg, H dh]
 //    (row stride 2 H dh bytes), one over new_k / new_v as [B S, H dh], both
 //    read in boxes of min(pg, 64) rows x one 64-column panel (128-byte
-//    swizzle; 32 columns, 64-byte swizzle, at dh 32). A chunk is one box per
-//    panel from one page (pg a multiple of 64) or 64 / pg boxes of whole
-//    pages (pg 8, 16, 32: whole 8-row swizzle atoms, so each lands where
-//    wgmma expects it); other page sizes are refused by the wrapper. An unset
+//    swizzle; 32 columns, 64-byte swizzle, at dh 32). Any page size
+//    (`paged_page_chunking`): pg >= 64, a chunk is one 64-row box within one
+//    page (a remainder chunk's box reads past its page, and its columns past
+//    the page are masked); pg < 64 and a multiple of 8, whole pages, one box
+//    each, as many as fit in 64 rows (8, 16, 32: 64 keys; 24, 48: 48), every
+//    box on whole 8-row swizzle atoms, so each lands where wgmma expects it;
+//    any other pg, one page a chunk. The bf16 instance zeroes the tile rows
+//    that a chunk of fewer than 64 keys leaves unloaded once, at the start,
+//    and masks their columns. An unset
 //    page (id -1, or past maxp) is loaded from row P pg, past the pool,
 //    which TMA fills with zeros: no stale shared memory reaches P V.
 //  - No mask work on certified chunks. A page chunk [c0, c0 + 64) with
@@ -127,9 +132,12 @@ struct Args {
   int S, H, pg, maxp;
   int P;                    // pages in the pool
   int qblocks;              // query blocks per user
-  int pg_shift;             // log2(pg) for pages of 8, 16 or 32 rows
+  float inv_pg;             // 1 / pg: a chunk column's page offset, (j + 0.5) / pg rounded down
   int scale_tma;            // int8 pages: the scales ride TMA (Smem::TMA_SCALES, 4 H % 16 == 0)
   float alpha, inv_scaling;
+  // paged_page_chunking: positions per unit of whole pages, chunks per unit,
+  // boxes per chunk and rows per box
+  int unit, cpu, nb, br;
 };
 
 // ------------------------------------------------ bf16 and int8 pages: wgmma
@@ -204,19 +212,31 @@ struct Cta {
     n_page = 0;
     int n_tail = 0;
     if (live > m0) {
-      n_page = (min(cached, a.maxp * a.pg) + CH - 1) / CH;
+      n_page = page_chunks(a, min(cached, a.maxp * a.pg));
       n_tail = (min(live, m0 + rows) + CH - 1) / CH;
     }
     const int n = n_page + n_tail;
     c_begin = (int)rank * n / splits;
     c_end = ((int)rank + 1) * n / splits;
   }
+  // paged_page_chunks: page chunks over the cached positions [0, reach)
+  __device__ static int page_chunks(const Args& a, int reach) {
+    return reach / a.unit * a.cpu + (reach % a.unit + CH - 1) / CH;
+  }
+  // paged_chunk_span: page chunk c's first position and keys
+  __device__ static void span(const Args& a, int c, int& c0, int& len) {
+    const int k = c % a.cpu;
+    c0 = c / a.cpu * a.unit + k * CH;
+    len = min(CH, a.unit - k * CH);
+  }
   __device__ static int page_id(const Args& a, const int* pt, int j) {
     return j < a.maxp ? pt[j] : -1;
   }
   // paged_chunk_fully_valid
-  __device__ bool fully_valid(const Args& a, const int* pt, int c0) const {
-    if (c0 + CH > lim) return false;
+  __device__ bool fully_valid(const Args& a, const int* pt, int c) const {
+    int c0, len;
+    span(a, c, c0, len);
+    if (len < CH || c0 + CH > lim) return false;
     for (int j = c0 / a.pg; j <= (c0 + CH - 1) / a.pg; ++j)
       if (page_id(a, pt, j) < 0) return false;
     return true;
@@ -245,8 +265,13 @@ __device__ __forceinline__ void silu_part(float (&sc)[32], const Args& a, const 
                                           const int* pt, int c, int row0, int t, const float* ks,
                                           const float* vs) {
   const int t0 = (c - T.n_page) * CH;   // TAIL: the chunk's first new token
+  int c0 = 0, len = CH, p0 = 0;          // PAGE: the chunk's positions and first page
+  if constexpr (FORM == PAGE) {
+    Cta::span(a, c, c0, len);
+    p0 = c0 / a.pg;
+  }
   // PAGE: a chunk lies in one page when pages hold 64 rows or more
-  const bool page_set = FORM == PAGE && a.pg >= CH && Cta::page_id(a, pt, c * CH / a.pg) >= 0;
+  const bool page_set = FORM == PAGE && a.pg >= CH && Cta::page_id(a, pt, p0) >= 0;
 #pragma unroll
   for (int g = 0; g < 8; ++g) {
     float2 kg = make_float2(1.f, 1.f), vg = kg;
@@ -263,8 +288,11 @@ __device__ __forceinline__ void silu_part(float (&sc)[32], const Args& a, const 
       if constexpr (SCALED) p *= e & 1 ? vg.y : vg.x;
       bool ok = true;
       if constexpr (FORM == PAGE) {
-        const int col = c * CH + j;
-        ok = col < T.lim && (a.pg >= CH ? page_set : Cta::page_id(a, pt, col >> a.pg_shift) >= 0);
+        // pg < 64: c0 starts a page, so column j lies in page p0 + j / pg
+        const int col = c0 + j;
+        ok = j < len && col < T.lim &&
+             (a.pg >= CH ? page_set
+                         : Cta::page_id(a, pt, p0 + (int)((j + 0.5f) * a.inv_pg)) >= 0);
       } else if constexpr (FORM == TAIL) {
         const int tt = t0 + j, col = T.cached + tt;
         const int row = T.cached + row0 + sm90::acc_row(t, i);
@@ -293,7 +321,7 @@ __device__ __forceinline__ void silu_chunk(float (&sc)[32], const Args& a, const
   }
   if (c >= T.n_page)
     silu_part<TAIL, false>(sc, a, T, pt, c, row0, t, ks, vs);
-  else if (T.fully_valid(a, pt, c * CH))
+  else if (T.fully_valid(a, pt, c))
     silu_part<NONE, I8>(sc, a, T, pt, c, row0, t, ks, vs);
   else
     silu_part<PAGE, I8>(sc, a, T, pt, c, row0, t, ks, vs);
@@ -316,7 +344,7 @@ __device__ __forceinline__ void produce(const Maps& m, const Args& a, const Cta&
   const int n = T.c_end - T.c_begin;
   if (n == 0) return;
   const int col = T.h * DH;
-  const int br = a.pg < CH ? a.pg : CH, nb = CH / br;   // boxes of a page chunk
+  const int br = a.br, nb = a.nb;   // boxes of a page chunk (nb br rows: 64, or fewer)
   sm90::mbar_expect_tx(&bars->q_full, NC * L::BYTES);
   for (int w = 0; w < NC; ++w)
     sm90::load_tile<DH>(tiles + w * L::BYTES, &m.q, col, T.b * a.S + T.m0 + w * QR,
@@ -331,9 +359,11 @@ __device__ __forceinline__ void produce(const Maps& m, const Args& a, const Cta&
       unsigned char* rk = tiles + S::RW + rs * 2 * S::RAW;
       unsigned char* rks = tiles + S::RSC + rs * 2 * CH * a.H * 4;
       uint64_t* full = &bars->raw.full[rs];
-      bars->raw.producer_acquire(u, 2 * S::RAW + (a.scale_tma ? 2 * CH * a.H * 4 : 0));
+      int c0, len;
+      Cta::span(a, c, c0, len);
+      bars->raw.producer_acquire(u, nb * br * (2 * DH + (a.scale_tma ? 2 * a.H * 4 : 0)));
       for (int s = 0; s < nb; ++s) {
-        const int row = T.pool_row(a, pt, c * CH + s * br);
+        const int row = T.pool_row(a, pt, c0 + s * br);
         sm90::tma_load_2d(rk + s * br * DH, &m.kp, col, row, full);
         sm90::tma_load_2d(rk + S::RAW + s * br * DH, &m.vp, col, row, full);
         if (a.scale_tma) {
@@ -345,10 +375,12 @@ __device__ __forceinline__ void produce(const Maps& m, const Args& a, const Cta&
       const int st = u % S::ST;
       unsigned char* kt = tiles + S::KV + st * 2 * L::BYTES;
       uint64_t* full = &bars->kv.full[st];
-      bars->kv.producer_acquire(u, 2 * L::BYTES);
       if (c < T.n_page) {
+        int c0, len;
+        Cta::span(a, c, c0, len);
+        bars->kv.producer_acquire(u, 2 * L::BYTES / CH * nb * br);
         for (int s = 0; s < nb; ++s) {
-          const int row = T.pool_row(a, pt, c * CH + s * br);
+          const int row = T.pool_row(a, pt, c0 + s * br);
           for (int i = 0; i < L::NP; ++i) {
             const int off = i * L::PANEL + s * br * L::PB;
             sm90::tma_load_2d(kt + off, &m.kp, col + i * L::PW, row, full);
@@ -356,6 +388,7 @@ __device__ __forceinline__ void produce(const Maps& m, const Args& a, const Cta&
           }
         }
       } else {
+        bars->kv.producer_acquire(u, 2 * L::BYTES);
         const int row = T.b * a.S + (c - T.n_page) * CH;
         sm90::load_tile<DH>(kt, &m.nk, col, row, full);
         sm90::load_tile<DH>(kt + L::BYTES, &m.nv, col, row, full);
@@ -396,8 +429,11 @@ __device__ __forceinline__ void widen(const Maps& m, const Args& a, const Cta& T
     const float* rks = reinterpret_cast<const float*>(tiles + S::RSC) + rs * 2 * CH * a.H;
     sm90::mbar_wait(&bars->kv.empty[st], ((u / S::ST) & 1) ^ 1);   // the bf16 stage is free
     if (!a.scale_tma) {
+      int c0, len;
+      Cta::span(a, c, c0, len);
       for (int x = w; x < 2 * CH; x += WIDEN) {
-        const int pos = c * CH + x % CH, pid = Cta::page_id(a, pt, pos / a.pg);
+        const int pos = c0 + x % CH;
+        const int pid = x % CH < len ? Cta::page_id(a, pt, pos / a.pg) : -1;
         const size_t at = ((size_t)pid * a.pg + pos % a.pg) * a.H + T.h;
         const float* src = x < CH ? a.k_scales : a.v_scales;
         sm90::cp_async4(ks + x, pid >= 0 ? src + at : src, pid >= 0);
@@ -483,6 +519,23 @@ paged_wgmma_kernel(const __grid_constant__ Maps m, bf16* __restrict__ out, Args 
     if (I8) bars->raw.init(R::WIDEN);
     sm90::mbar_init(&bars->q_full, 1);
     sm90::mbar_init_fence();
+  }
+  if constexpr (!I8) {
+    // page chunks of fewer than 64 keys leave rows [nb br, 64) of the bf16
+    // tiles unloaded: zero them once, so their masked columns add p 0 times
+    // a finite V (the int8 instance widens every row from int8)
+    const int from = a.nb * a.br;
+    if (from < CH) {
+      constexpr int W4 = L::PB / 16;   // 16-byte words of a panel row
+      const int per_tile = L::NP * (CH - from) * W4;
+      for (int e = threadIdx.x; e < S::ST * 2 * per_tile; e += blockDim.x) {
+        const int tile = e / per_tile, i = e % per_tile / ((CH - from) * W4);
+        const int r = from + e % ((CH - from) * W4) / W4, w = e % W4;
+        *reinterpret_cast<uint4*>(tiles + S::KV + tile * L::BYTES + i * L::PANEL + r * L::PB +
+                                  16 * w) = make_uint4(0, 0, 0, 0);
+      }
+      sm90::fence_async_smem();   // the zeros, for wgmma and TMA
+    }
   }
   __syncthreads();
 
@@ -721,7 +774,7 @@ int launch_wg(const void* q, const void* kp, const void* vp, const void* nk, con
   if (smem > 232448) return -4;   // the int8 scale stages of many heads
   a.scale_tma = S::TMA_SCALES && (4 * a.H) % 16 == 0;
   wg::Maps m{};
-  const uint32_t br = a.pg < wg::CH ? a.pg : wg::CH, pw = sm90::Tile<DH>::PW;
+  const uint32_t br = a.br, pw = sm90::Tile<DH>::PW;
   const uint64_t rows = (uint64_t)a.P * a.pg, cols = (uint64_t)a.H * DH, T = (uint64_t)B * a.S;
   int err = sm90::make_tile_map(&m.q, q, T, cols, cols, wg::QR, pw);
   if (!err) err = sm90::make_tile_map(&m.nk, nk, T, cols, cols, wg::CH, pw);
@@ -750,9 +803,21 @@ int dispatch_wg(int dh, int nc, const void* q, const void* kp, const void* vp, c
                 const void* nv, void* out, Args a, int B, int splits, cudaStream_t st) {
   if (nc != 1 && nc != 2) return -1;
   if (splits < 1 || splits > 16) return -1;
-  if (!(a.pg % wg::CH == 0 || a.pg == 8 || a.pg == 16 || a.pg == 32)) return -1;
+  if (a.pg < 1) return -1;
   a.qblocks = (a.S + nc * wg::QR - 1) / (nc * wg::QR);
-  a.pg_shift = a.pg == 8 ? 3 : a.pg == 16 ? 4 : 5;
+  a.inv_pg = 1.f / a.pg;
+  // paged_page_chunking
+  if (a.pg >= wg::CH) {
+    a.unit = a.pg;
+    a.cpu = (a.pg + wg::CH - 1) / wg::CH;
+    a.nb = 1;
+    a.br = wg::CH;
+  } else {
+    a.nb = a.pg % 8 == 0 ? wg::CH / a.pg : 1;
+    a.unit = a.nb * a.pg;
+    a.cpu = 1;
+    a.br = a.pg;
+  }
 #define PAGED_NC(D)                                                                   \
   return nc == 1 ? launch_wg<D, 1, I8>(q, kp, vp, nk, nv, out, a, B, splits, st)      \
                  : launch_wg<D, 2, I8>(q, kp, vp, nk, nv, out, a, B, splits, st)
@@ -789,8 +854,7 @@ int launch_scalar(const void* q, const void* kp, const void* vp, const void* nk,
 
 // dtype: 0 = bf16 (the wgmma kernel), 1 = fp32 (the scalar kernel); q, pages,
 // new K/V and out share it. P: pages in the pool. splits and consumers: the
-// plan of `paged_split_plan` (bf16 only: 1 to 16, and 1 or 2; bf16 pages
-// also need page sizes 8, 16, 32 or a multiple of 64).
+// plan of `paged_split_plan` (bf16 only: 1 to 16, and 1 or 2; any page size).
 // num_targets may be null. Returns the CUDA error code of the launch (0 on
 // success), -1 for an unsupported dtype, head dim, page size or plan, -2 / -3
 // when a tensor map cannot be made, -4 when the int8 scale stages of H heads
@@ -803,7 +867,7 @@ extern "C" int paged_hstu_delta_attention_launch(
     float alpha, float inv_scaling, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   const Args a{page_table, cached_len, new_lens, num_targets, nullptr, nullptr, S, H, pg, maxp,
-               P, 0, 0, 0, alpha, inv_scaling};
+               P, 0, 0.f, 0, alpha, inv_scaling};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_wg<false>(dh, consumers, q, k_pages, v_pages, new_k, new_v, out, a, B,
@@ -829,7 +893,7 @@ extern "C" int paged_hstu_delta_attention_int8_launch(
     float inv_scaling, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   const Args a{page_table, cached_len, new_lens, num_targets, k_scales, v_scales, S, H, pg, maxp,
-               P, 0, 0, 0, alpha, inv_scaling};
+               P, 0, 0.f, 0, alpha, inv_scaling};
   return dispatch_wg<true>(dh, consumers, q, k_pages, v_pages, new_k, new_v, out, a, B, splits,
                            static_cast<cudaStream_t>(stream));
 }

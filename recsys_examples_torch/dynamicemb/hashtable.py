@@ -39,6 +39,7 @@ from recsys_examples_torch.utils.device import resolve_device
 from recsys_examples_torch.utils.scatter import masked_set_
 
 _I64_MIN = -(2 ** 63)
+_I64_MAX = 2 ** 63 - 1
 
 
 @dataclasses.dataclass
@@ -139,19 +140,36 @@ def _bucket_rank(b: torch.Tensor, want: torch.Tensor, num_buckets: int) -> torch
     return rank
 
 
-def _choose_slot(bucket_keys, bucket_scores, key, rank):
+def _choose_slot(bucket_keys, bucket_scores, key, rank, protected=None):
     """Per-key target slot: match > rank-th empty > min-score eviction
     (the first minimum; simultaneous same-bucket evictions resolve over
-    retry rounds through the claim step)."""
+    retry rounds through the claim step). Returns (slot, found, evicts,
+    stuck).
+
+    With `protected` [n, C] (cells never to evict): the key of rank r past
+    the bucket's e empty cells takes the (r - e)-th unprotected live cell in
+    (score, lane) order, so a bucket takes all its evictions in one round;
+    that is the sequence of victims the rounds of first minima give while
+    no cell won in the call becomes a minimum again. A key past the last
+    such cell is `stuck`: no cell of its bucket may take it."""
     match = (bucket_keys == key[:, None]) & (key[:, None] != EMPTY_KEY)
     found = match.any(dim=1)
     empty = bucket_keys == EMPTY_KEY
     empty_cum = torch.cumsum(empty, dim=1)
     takes_empty = rank < empty_cum[:, -1]
     kth_empty = _first_true(empty_cum > rank[:, None])
-    slot = torch.where(found, _first_true(match),
-                       torch.where(takes_empty, kth_empty, _first_min(bucket_scores)))
-    return slot, found, ~found & ~takes_empty
+    stuck = torch.zeros_like(found)
+    if protected is None:
+        victim = _first_min(bucket_scores)
+    else:
+        evictable = ~empty & ~protected
+        order = torch.sort(torch.where(evictable, bucket_scores, _I64_MAX), dim=1,
+                           stable=True).indices
+        j = rank - empty_cum[:, -1]
+        stuck = ~found & ~takes_empty & (j >= evictable.sum(dim=1))
+        victim = _take(order, j.clamp(0, bucket_keys.shape[1] - 1))
+    slot = torch.where(found, _first_true(match), torch.where(takes_empty, kth_empty, victim))
+    return slot, found, ~found & ~takes_empty, stuck
 
 
 @torch.no_grad()
@@ -164,6 +182,7 @@ def insert_and_evict(
     *,
     update_existing_values: bool = False,
     rounds: int = 16,
+    protect: Optional[torch.Tensor] = None,
 ) -> Tuple[HashTableState, torch.Tensor, torch.Tensor]:
     """Insert keys (evicting min-score victims in full buckets), in place.
 
@@ -172,6 +191,14 @@ def insert_and_evict(
     are overwritten only when update_existing_values. A key stored and
     evicted again within this call keeps the slot it had won: compare
     `state.keys` at the slot with the key to tell (`owns_slot`).
+
+    `protect` [capacity] bool (the embedding cache's prefetch passes it,
+    the JAX package has none): marked cells are never evicted, every cell
+    this call wins is marked, in place, and a bucket's evictions take its
+    cells in (score, lane) order in one round (`_choose_slot`). A key
+    whose bucket has no cell left for it fails (slot -1, counted as
+    overflow). Where the rounds of the unprotected call would evict no
+    marked cell and place every key, the result is theirs.
     """
     n = keys.shape[0]
     C, NB = state.bucket_capacity, state.num_buckets
@@ -189,6 +216,7 @@ def insert_and_evict(
     masked_set_(flat_scores, flat0, torch.maximum(flat_scores[flat0], scores), found_any)
     slots_out = torch.where(found_any, flat0, -1)
     evicted_any = torch.zeros((n,), dtype=torch.bool, device=keys.device)
+    stuck_any = torch.zeros_like(evicted_any)
     pending = active & ~found_any
 
     for _ in range(rounds):
@@ -198,8 +226,13 @@ def insert_and_evict(
         raw_scores = state.scores[b]
         bucket_scores = torch.where(bucket_keys == EMPTY_KEY, _I64_MIN, raw_scores)
         rank = _bucket_rank(b, pending, NB)
-        slot_in, found, is_evict = _choose_slot(bucket_keys, bucket_scores, keys, rank)
+        prot = None if protect is None else protect.view(NB, C)[b]
+        slot_in, found, is_evict, stuck = _choose_slot(bucket_keys, bucket_scores, keys,
+                                                       rank, prot)
         flat = b * C + slot_in
+        # a stuck key stays stuck: its bucket only fills up
+        stuck_any |= pending & stuck
+        pending = pending & ~stuck
         # claim: of the keys wanting one cell the lowest index wins this round
         tgt = torch.where(pending, flat, NB * C)
         tgt_sorted, order = torch.sort(tgt, stable=True)
@@ -213,6 +246,8 @@ def insert_and_evict(
         masked_set_(flat_keys, flat, keys, win)
         masked_set_(flat_scores, flat, refreshed, win)
         slots_out = torch.where(win, flat, slots_out)
+        if protect is not None:
+            masked_set_(protect, flat, True, win)
         evicted_any |= win & is_evict
         found_any = found_any | (win & found)
         pending = pending & ~win
@@ -229,7 +264,7 @@ def insert_and_evict(
             masked_set_(state.opt, slots_out, opt_rows, write_val)
     state.inserted += (won & ~found_any).sum()
     state.evicted += evicted_any.sum()
-    state.overflowed += pending.sum()
+    state.overflowed += (pending | stuck_any).sum()
     return state, slots_out, evicted_any
 
 

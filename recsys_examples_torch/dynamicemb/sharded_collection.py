@@ -1,4 +1,5 @@
-"""One dynamic table with its phase-A / phase-C entry points, on one device
+"""One dynamic table with its phase-A / phase-C entry points, and several features
+grouped in one table (`GroupedShardedDynamicEmbedding`), on one device
 (counterpart of recsys_examples_tpu/dynamicemb/sharded_collection.py,
 `mesh=None` only).
 
@@ -100,3 +101,42 @@ class ShardedDynamicEmbedding:
         gu = torch.zeros(grad_out.shape, dtype=torch.float32, device=grad_out.device)
         gu.index_add_(0, res.reverse_idx, grad_out.float())
         return self.table.backward(state, res.slots, gu, keys=res.recv_keys)
+
+
+class GroupedShardedDynamicEmbedding:
+    """Several sparse features served by one table pass (counterpart of the
+    JAX package's `GroupedShardedDynamicEmbedding`), on one device: the
+    feature index goes in bits 58 and up of the key, so dedup, lookup and
+    insert run once for all of them. Ids outside [0, 2^58) would alias into
+    another feature's keys and become EMPTY_KEY (skipped, zero rows)."""
+
+    _TID_SHIFT = 58
+
+    def __init__(self, table: DynamicEmbeddingTable, feature_names, mesh=None,
+                 device="cuda"):
+        if len(feature_names) >= 1 << 5:
+            raise ValueError("too many grouped features")
+        self.feature_names = tuple(feature_names)
+        self.inner = ShardedDynamicEmbedding(table, mesh=mesh, device=device)
+        self.table = table
+
+    def init_state(self) -> DynamicEmbTableState:
+        return self.inner.init_state()
+
+    def _compose(self, ids: torch.Tensor, tid: int) -> torch.Tensor:
+        ids = ids.to(torch.int64)
+        ok = (ids != EMPTY_KEY) & (ids >= 0) & (ids < (1 << self._TID_SHIFT))
+        return torch.where(ok, ids + (tid << self._TID_SHIFT), EMPTY_KEY)
+
+    @torch.no_grad()
+    def forward(self, state, ids_by_feature, train: bool = True):
+        """ids_by_feature: {name: [T_f] int64}. Returns (state, {name: [T_f,
+        dim]}, residual)."""
+        parts = [self._compose(ids_by_feature[n], i) for i, n in enumerate(self.feature_names)]
+        state, emb, res = self.inner.forward(state, torch.cat(parts), train=train)
+        return state, dict(zip(self.feature_names, emb.split([p.shape[0] for p in parts]))), res
+
+    @torch.no_grad()
+    def backward(self, state, res: LookupResidual, grads_by_feature):
+        g = torch.cat([grads_by_feature[n] for n in self.feature_names])
+        return self.inner.backward(state, res, g)

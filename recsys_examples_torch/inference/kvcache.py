@@ -18,13 +18,18 @@ The directory functions return new tensors. `append_kvcache` writes the
 page pools IN PLACE (JAX donates the state to the jitted step, which frees
 it to do the same); callers that need the old pages must clone them first.
 
-`HostKVStorage` (the host-RAM tier) is not ported yet.
+`HostKVStorage` is the host tier of evicted users' KV: host RAM (the native
+C++ store, csrc/host_store.cpp), optionally over an SSD arena; `offload`
+copies a user's KV to it, `onboard` copies it back to the card and appends
+it to the paged cache.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+import os
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from recsys_examples_torch.utils.device import resolve_device
@@ -347,3 +352,152 @@ def evict_users(state: KVCacheState, user_ids: torch.Tensor) -> KVCacheState:
             (owner >= 0) & victim[owner.clamp_min(0)], -1, owner
         ),
     )
+
+
+class HostKVStorage:
+    """Host tier for evicted users' KV (counterpart of the JAX package's
+    `HostKVStorage`). A user's K and V go to host RAM as one float32 row
+    (bf16 values widen exactly), bucketed by cached length in power-of-two
+    token widths (a user of n cached tokens lives in the smallest width >=
+    n), one native store per width; the cached length rides in the score.
+    With `ram_capacity_users` and `ssd_dir`, the least recently offloaded
+    users beyond it spill to per-width memmap arenas under `ssd_dir` and
+    are promoted back on lookup."""
+
+    def __init__(self, cfg: KVCacheConfig, ram_capacity_users: int = 0,
+                 ssd_dir: Optional[str] = None):
+        self.cfg = cfg
+        self._elems_per_token = 2 * cfg.num_layers * cfg.num_heads * cfg.head_dim
+        self._stores = {}
+        self._user_bucket = {}
+        self._ram_cap = ram_capacity_users
+        self._ssd_dir = ssd_dir
+        self._ssd_stores = {}
+        self._ssd_users = {}     # user -> width (rows living on SSD)
+        self._lru = []           # RAM users, oldest first
+        self.stats = {"ssd_spills": 0, "ssd_hits": 0}
+
+    def _bucket(self, n: int) -> int:
+        width = 1
+        while width < n:
+            width *= 2
+        return min(width, self.cfg.max_cached_len)
+
+    def _store_for(self, width: int):
+        from recsys_examples_torch.utils.native import NativeHostStore
+
+        st = self._stores.get(width)
+        if st is None:
+            st = self._stores[width] = NativeHostStore(self._elems_per_token * width)
+        return st
+
+    def __len__(self) -> int:
+        return len(self._user_bucket) + len(self._ssd_users)
+
+    def offload(self, state: KVCacheState, user_id: int) -> None:
+        """Copy the user's cached KV to host RAM (no-op for a user without
+        a cache on the card)."""
+        dev = state.user_ids.device
+        slot, cached = lookup_kvcache(state, torch.tensor([user_id], dtype=torch.int64,
+                                                          device=dev))
+        n = int(cached[0])
+        if int(slot[0]) < 0 or n == 0:
+            return
+        width = self._bucket(n)
+        k, v, _ = gather_kvcache(state, self.cfg, slot, width)
+        row = np.concatenate([k[:, 0].float().cpu().numpy().reshape(-1),
+                              v[:, 0].float().cpu().numpy().reshape(-1)])[None]
+        uid = int(user_id)
+        key = np.asarray([uid], np.int64)
+        old = self._user_bucket.get(uid)
+        if old is not None and old != width:
+            self._stores[old].erase(key)
+        self._store_for(width).put(key, row, np.asarray([n], np.int64))
+        self._user_bucket[uid] = width
+        if uid in self._lru:
+            self._lru.remove(uid)
+        self._lru.append(uid)
+        self._ssd_evict_one(uid)
+        self._maybe_spill()
+
+    def _ssd_store_for(self, width: int):
+        from recsys_examples_torch.dynamicemb.tiered_storage import SSDStore
+
+        st = self._ssd_stores.get(width)
+        if st is None:
+            st = self._ssd_stores[width] = SSDStore(
+                os.path.join(self._ssd_dir, f"kv_w{width}.bin"),
+                self._elems_per_token * width, capacity=max(self._ram_cap * 8, 64))
+        return st
+
+    def _ssd_evict_one(self, uid: int) -> None:
+        w = self._ssd_users.pop(uid, None)
+        if w is not None:
+            self._ssd_stores[w].erase(np.asarray([uid], np.int64))
+
+    def _maybe_spill(self) -> None:
+        if not self._ram_cap or self._ssd_dir is None:
+            return
+        while len(self._lru) > self._ram_cap:
+            uid = self._lru.pop(0)
+            w = self._user_bucket.pop(uid, None)
+            if w is None:
+                continue
+            key = np.asarray([uid], np.int64)
+            rows, scores, found = self._stores[w].get_scored(key)
+            if found[0]:
+                self._ssd_store_for(w).put(key, rows, scores[:1])
+                self._ssd_users[uid] = w
+                self.stats["ssd_spills"] += 1
+            self._stores[w].erase(key)
+
+    def _promote_from_ssd(self, uid: int) -> bool:
+        w = self._ssd_users.get(uid)
+        if w is None:
+            return False
+        key = np.asarray([uid], np.int64)
+        rows, scores, found = self._ssd_stores[w].get(key)
+        if not found[0]:
+            self._ssd_users.pop(uid, None)
+            return False
+        self._store_for(w).put(key, rows, scores[:1])
+        self._user_bucket[uid] = w
+        self._lru.append(uid)
+        self._ssd_stores[w].erase(key)
+        self._ssd_users.pop(uid, None)
+        self.stats["ssd_hits"] += 1
+        self._maybe_spill()
+        return True
+
+    def lookup(self, user_id: int) -> int:
+        """The user's cached token count on the host (0: none), promoting
+        it from SSD to RAM when it lives there."""
+        uid = int(user_id)
+        width = self._user_bucket.get(uid)
+        if width is None:
+            if not self._promote_from_ssd(uid):
+                return 0
+            width = self._user_bucket[uid]
+        _, scores, found = self._stores[width].get_scored(np.asarray([uid], np.int64))
+        return int(scores[0]) if found[0] else 0
+
+    def onboard(self, state: KVCacheState, user_id: int) -> KVCacheState:
+        """Copy the user's host KV to the card: allocate its pages and
+        append it (the page pools in place)."""
+        n = self.lookup(user_id)
+        if n == 0:
+            return state
+        width = self._user_bucket[int(user_id)]
+        rows, found = self._stores[width].get(np.asarray([user_id], np.int64))
+        if not found[0]:
+            return state
+        cfg = self.cfg
+        dev = state.user_ids.device
+        shape = (cfg.num_layers, width, cfg.num_heads, cfg.head_dim)
+        half = self._elems_per_token * width // 2
+        k = torch.from_numpy(rows[0, :half].reshape(shape)[:, :n]).to(dev)
+        v = torch.from_numpy(rows[0, half:].reshape(shape)[:, :n]).to(dev)
+        uid = torch.tensor([user_id], dtype=torch.int64, device=dev)
+        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        state, slots = allocate_kvcache(state, cfg, uid, lens)
+        return append_kvcache(state, cfg, slots, k[:, None], v[:, None], lens)

@@ -12,7 +12,8 @@ indices name the beam slot that holds step n's KV on beam w's path.
 
   - CUDA tensors launch the hand-written kernel K7
     (`csrc/beam_decode_attention.cu`; bf16 on wgmma, fp32 on scalar FMA, head
-    dims 32/64/128) or raise;
+    dims 32/64/128/256, any other zero-padded to the next by the wrapper,
+    `ops/head_dims.py`) or raise;
   - CPU tensors, and `backend="plain"`, run `beam_decode_attn_ref`.
 `beam_decode_attn.launches` counts kernel launches.
 
@@ -32,11 +33,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from recsys_examples_torch.ops.head_dims import instance_head_dim, pad_head_dim, unpad_head_dim
 from recsys_examples_torch.utils.clusters import MAX_SPLITS, one_wave_split
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def beam_decode_attn_ref(
@@ -292,8 +294,13 @@ def _launch_cuda(q, k_ctx, v_ctx, ctx_lens, k_beam, v_beam, ancestry, sm_scale, 
         raise ValueError(f"the beam-decode attention kernel takes CUDA tensors, got {dev}")
     if dt not in _DTYPE_CODE:
         raise TypeError(f"beam-decode attention kernel takes bf16 or fp32, got {dt}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"beam-decode attention kernel takes head dims {_HEAD_DIMS}, got {D}")
+    if D not in _HEAD_DIMS:   # zero columns add zero scores; sm_scale stays the caller's
+        d = instance_head_dim(D, _HEAD_DIMS)
+        k_beam, v_beam = (None, None) if k_beam is None else (
+            pad_head_dim(k_beam, d), pad_head_dim(v_beam, d))
+        out = _launch_cuda(pad_head_dim(q, d), pad_head_dim(k_ctx, d), pad_head_dim(v_ctx, d),
+                           ctx_lens, k_beam, v_beam, ancestry, sm_scale, splits)
+        return unpad_head_dim(out, D)
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"{H} query heads do not divide into {Hkv} kv heads")
     _check("q", q, dt, (B, W, H, D), dev, 2)

@@ -7,8 +7,10 @@ q, k, v and `seq_offsets [B+1]`, as the original `hstu_attn_varlen_func`
 takes them. Its forward runs K1, its backward K2 (dq) then K3 (dk, dv); with
 a relative attention bias `rab` the three kernels of K4 run instead (forward,
 dq + drab, dk/dv):
-  - CUDA tensors launch the hand-written kernels (head dims 32/64/128/256,
-    all wgmma, TMA, warp-specialised) or raise: K1 and K4's forward from
+  - CUDA tensors launch the hand-written kernels (built for head dims
+    32/64/128/256, all wgmma, TMA, warp-specialised; the wrappers zero-pad
+    any other head dim up to the next and slice the outputs and gradients,
+    `ops/head_dims.py`) or raise: K1 and K4's forward from
     `csrc/hstu_attention_fwd.cu`, K2, K3, K4's dq + drab and K4's dk/dv
     from `csrc/hstu_attention_bwd.cu`;
   - CPU tensors run the plain versions of `ops/hstu_attention_ref.py`.
@@ -29,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from recsys_examples_torch.ops.head_dims import instance_head_dim, pad_head_dim, unpad_head_dim
 from recsys_examples_torch.ops.hstu_attention_ref import (
     hstu_attn_bwd_ref,
     hstu_mha_int8_reference,
@@ -166,46 +169,58 @@ def _launch(entry, tensors, outs, seq_offsets, num_contextuals, num_targets,
         raise RuntimeError(f"{entry} failed: error {err}")
 
 
+def _padded(*tensors):
+    """The operands zero-padded to the next built head dim (themselves when
+    theirs is built), and the head dim to slice the results back to."""
+    dh = tensors[0].shape[-1]
+    d = instance_head_dim(dh, _HEAD_DIMS)
+    return [pad_head_dim(t, d) for t in tensors], dh
+
+
 def hstu_attn_fwd_cuda(q, k, v, seq_offsets, num_contextuals, num_targets,
                        opts: AttnOptions) -> torch.Tensor:
     """K1. Rows no sequence owns come out zero."""
+    (q, k, v), dh = _padded(q, k, v)
     out = torch.zeros_like(q)
     _launch("hstu_attn_fwd_launch", (q, k, v), (out,), seq_offsets,
             num_contextuals, num_targets, opts)
     hstu_attn_fwd_cuda.launches += 1
-    return out
+    return unpad_head_dim(out, dh)
 
 
 def hstu_attn_bwd_dq_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                           num_targets, opts: AttnOptions) -> torch.Tensor:
     """K2."""
+    (q, k, v, dout), dh = _padded(q, k, v, dout)
     dq = torch.zeros_like(q)
     _launch("hstu_attn_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
             num_contextuals, num_targets, opts)
     hstu_attn_bwd_dq_cuda.launches += 1
-    return dq
+    return unpad_head_dim(dq, dh)
 
 
 def hstu_attn_bwd_dkv_cuda(q, k, v, dout, seq_offsets, num_contextuals,
                            num_targets, opts: AttnOptions
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3."""
+    (q, k, v, dout), dh = _padded(q, k, v, dout)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     _launch("hstu_attn_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
             num_contextuals, num_targets, opts)
     hstu_attn_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return unpad_head_dim(dk, dh), unpad_head_dim(dv, dh)
 
 
 def hstu_attn_rab_fwd_cuda(q, k, v, rab, seq_offsets, num_contextuals, num_targets,
                            opts: AttnOptions) -> torch.Tensor:
     """K4 forward: K1 with `rab` [B|1, H|1, Nq, Nk] (fp32 or bf16) added to
     the scores."""
+    (q, k, v), dh = _padded(q, k, v)
     out = torch.zeros_like(q)
     _launch("hstu_attn_rab_fwd_launch", (q, k, v), (out,), seq_offsets,
             num_contextuals, num_targets, opts, rab)
     hstu_attn_rab_fwd_cuda.launches += 1
-    return out
+    return unpad_head_dim(out, dh)
 
 
 def hstu_attn_rab_bwd_dq_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
@@ -214,24 +229,26 @@ def hstu_attn_rab_bwd_dq_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
     """K4 dq + drab. drab is fp32 of rab's shape: a broadcast dim of rab is
     summed by fp32 atomics (the last bits depend on their order); cells no
     valid (row, col) pair reaches are zero."""
+    (q, k, v, dout), dh = _padded(q, k, v, dout)
     dq = torch.zeros_like(q)
     drab = torch.zeros(rab.shape, dtype=torch.float32, device=rab.device) \
         if need_drab else None
     _launch("hstu_attn_rab_bwd_dq_launch", (q, k, v, dout), (dq,), seq_offsets,
             num_contextuals, num_targets, opts, rab, drab)
     hstu_attn_rab_bwd_dq_cuda.launches += 1
-    return dq, drab
+    return unpad_head_dim(dq, dh), drab
 
 
 def hstu_attn_rab_bwd_dkv_cuda(q, k, v, dout, rab, seq_offsets, num_contextuals,
                                num_targets, opts: AttnOptions
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 dk, dv."""
+    (q, k, v, dout), dh = _padded(q, k, v, dout)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     _launch("hstu_attn_rab_bwd_dkv_launch", (q, k, v, dout), (dk, dv), seq_offsets,
             num_contextuals, num_targets, opts, rab)
     hstu_attn_rab_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return unpad_head_dim(dk, dh), unpad_head_dim(dv, dh)
 
 
 def hstu_attn_fwd_int8_cuda(q8, k8, v8, seq_offsets, num_contextuals, num_targets,
@@ -239,11 +256,12 @@ def hstu_attn_fwd_int8_cuda(q8, k8, v8, seq_offsets, num_contextuals, num_target
     """K5: K1 on int8 q, k, v [T, H, dh]. `opts.alpha` already holds
     alpha * q_scale * k_scale; the bf16 output is scaled by `v_scale`. Rows
     no sequence owns come out zero."""
+    (q8, k8, v8), dh = _padded(q8, k8, v8)
     out = torch.zeros(q8.shape, dtype=torch.bfloat16, device=q8.device)
     _launch("hstu_attn_fwd_int8_launch", (q8, k8, v8), (out,), seq_offsets, num_contextuals,
             num_targets, opts, dtype=torch.int8, extra=(float(v_scale),))
     hstu_attn_fwd_int8_cuda.launches += 1
-    return out
+    return unpad_head_dim(out, dh)
 
 
 hstu_attn_fwd_cuda.launches = 0

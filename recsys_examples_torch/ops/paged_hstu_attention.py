@@ -24,14 +24,17 @@ pages with one fp32 scale per (token, head); passed with `k_scales` /
 new tokens; half the page bytes), CPU tensors run the plain version on the
 dequantized pages. The kernel folds the scales into the scores and the
 probabilities and rounds p * v_scale to bf16 before p . v8 (the TPU kernel
-runs that product in fp32).
+runs that product in fp32). fp32 queries and new tokens over int8 pages are
+cast to bf16 by the wrapper and the output back to fp32.
 
 On bf16 and int8 pages the kernel splits each user's keys over a cluster of
 CTAs and sums their partial outputs (SiLU attention has no normaliser); the
 plan and the chunk walk are stated here in plain Python (`paged_split_plan`
 and what follows it), with `paged_hstu_delta_attention_split_ref` as the
-kernel's arithmetic. Those pages take page sizes 8, 16, 32 or a multiple of
-64; fp32 pages (the scalar kernel) any.
+kernel's arithmetic. Any page size: `paged_page_chunking` says how the
+cached positions split into chunks. The kernels are built for head dims
+32/64/128/256; the wrapper zero-pads any other head dim up to the next one
+(`ops/head_dims.py`) and slices the output.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from recsys_examples_torch.ops.head_dims import instance_head_dim, pad_head_dim, unpad_head_dim
 from recsys_examples_torch.utils.clusters import MAX_SPLITS, one_wave_split
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -113,7 +117,8 @@ def paged_hstu_delta_attention_ref(
 
 # ---------------------------------------------------------------- the kernel's plan
 # The bf16 and int8 kernels' work split, stated in plain Python; the kernel
-# (`csrc/paged_hstu_attention.cu`) copies `paged_chunk_counts`,
+# (`csrc/paged_hstu_attention.cu`) copies `paged_page_chunking`,
+# `paged_chunk_span`, `paged_page_chunks`, `paged_chunk_counts`,
 # `paged_cta_chunks`, `paged_chunk_fully_valid` and `paged_chunk_valid` line
 # by line, and the wrapper launches the plan of `paged_split_plan`.
 PAGED_CHUNK = 64         # key positions per chunk: one 64-row TMA tile
@@ -136,6 +141,37 @@ def paged_query_blocks(S: int) -> Tuple[int, int, int]:
     return consumers, rows, -(-S // rows)
 
 
+def paged_page_chunking(pg: int) -> Tuple[int, int, int, int]:
+    """How the cached positions split into page chunks: (unit, chunks per
+    unit, boxes per chunk, rows per box). The positions go in units of
+    whole pages, each cut into 64-key chunks and a remainder:
+      - pg >= 64: a unit is one page; a chunk is one box of 64 rows, the
+        remainder's box reading past its page (masked);
+      - pg < 64 and a multiple of 8: a unit is the most whole pages within
+        64 keys (8, 16, 32: 64 keys; 24 and 48: 48), one box a page, every
+        box on an 8-row swizzle atom;
+      - any other pg: one page a unit and a chunk.
+    A chunk shorter than 64 keys leaves the tile's last rows unloaded: the
+    kernel zeroes them once and masks their columns."""
+    if pg >= PAGED_CHUNK:
+        return pg, -(-pg // PAGED_CHUNK), 1, PAGED_CHUNK
+    pages = PAGED_CHUNK // pg if pg % 8 == 0 else 1
+    return pages * pg, 1, pages, pg
+
+
+def paged_chunk_span(c: int, pg: int) -> Tuple[int, int]:
+    """(first position, keys) of page chunk c."""
+    unit, cpu, _, _ = paged_page_chunking(pg)
+    k = c % cpu
+    return (c // cpu) * unit + k * PAGED_CHUNK, min(PAGED_CHUNK, unit - k * PAGED_CHUNK)
+
+
+def paged_page_chunks(reach: int, pg: int) -> int:
+    """Page chunks over the cached positions [0, reach)."""
+    unit, cpu, _, _ = paged_page_chunking(pg)
+    return reach // unit * cpu + -(-(reach % unit) // PAGED_CHUNK)
+
+
 def paged_split_plan(B: int, S: int, H: int, maxp: int, pg: int,
                      capacity: Callable[[int, int], int]) -> PagedPlan:
     """The grid of the bf16 and int8 kernels, from shapes alone (no device
@@ -145,28 +181,26 @@ def paged_split_plan(B: int, S: int, H: int, maxp: int, pg: int,
     `capacity(consumers, splits)` is how many clusters of `splits` CTAs it
     holds (the wrapper asks the card). A second wave of clusters costs more
     than the split saves: an H100 holds 39 clusters of 3 and 30 of 4, so the
-    serving shape's 32 (user, head) pairs split 3 ways (PERF.md §6)."""
-    # a chunk is one box of one page (pg a multiple of 64) or 64 / pg boxes
-    # of whole pages (8, 16 or 32 rows: whole 8-row swizzle atoms)
-    if not (pg % PAGED_CHUNK == 0 or pg in (8, 16, 32)):
-        raise ValueError(f"the bf16 and int8 paged kernels take page sizes 8, 16, 32 or a "
-                         f"multiple of {PAGED_CHUNK}, got {pg}")
+    serving shape's 32 (user, head) pairs split 3 ways (PERF.md §6). Any
+    page size (`paged_page_chunking`)."""
+    if pg < 1:
+        raise ValueError(f"page size {pg}")
     consumers, rows, qblocks = paged_query_blocks(S)
-    most = -(-maxp * pg // PAGED_CHUNK) + -(-min(S, rows) // PAGED_CHUNK)
+    most = paged_page_chunks(maxp * pg, pg) + -(-min(S, rows) // PAGED_CHUNK)
     splits = one_wave_split(B * H * qblocks, most, lambda s: capacity(consumers, s))
     return PagedPlan(splits, consumers, rows, qblocks, (splits, H, B * qblocks))
 
 
 def paged_chunk_counts(cached: int, new_len: int, S: int, m0: int, rows: int, maxp: int,
                        pg: int) -> Tuple[int, int]:
-    """(page chunks, tail chunks) of the query block at row m0: chunk c <
-    n_page covers cached positions [64 c, 64 c + 64), clipped to the page
-    table's reach; chunk n_page + u the new tokens [64 u, 64 u + 64) that the
-    block's rows can see. (0, 0) for a block without a live row."""
+    """(page chunks, tail chunks) of the query block at row m0: page chunk c
+    < n_page covers the cached positions of `paged_chunk_span(c, pg)`, up to
+    the page table's reach; chunk n_page + u the new tokens [64 u, 64 u + 64)
+    that the block's rows can see. (0, 0) for a block without a live row."""
     live = min(new_len, S)
     if live <= m0:
         return 0, 0
-    n_page = -(-min(cached, maxp * pg) // PAGED_CHUNK)
+    n_page = paged_page_chunks(min(cached, maxp * pg), pg)
     n_tail = -(-min(live, m0 + rows) // PAGED_CHUNK)
     return n_page, n_tail
 
@@ -177,13 +211,14 @@ def paged_cta_chunks(rank: int, splits: int, n: int) -> Tuple[int, int]:
     return rank * n // splits, (rank + 1) * n // splits
 
 
-def paged_chunk_fully_valid(c0: int, cached: int, hist_end: int, page_row, pg: int,
+def paged_chunk_fully_valid(c: int, cached: int, hist_end: int, page_row, pg: int,
                             maxp: int) -> bool:
-    """The page chunk at position c0 is valid for every live row: it ends
+    """Page chunk c is valid for every live row: it holds 64 keys, ends
     below both the cache and the history end (every column col < hist_end,
     and every row cached + i > col), and each page it touches is set. Such a
     chunk takes no mask."""
-    if c0 + PAGED_CHUNK > min(cached, hist_end):
+    c0, n = paged_chunk_span(c, pg)
+    if n < PAGED_CHUNK or c0 + PAGED_CHUNK > min(cached, hist_end):
         return False
     return all(j < maxp and page_row[j] >= 0
                for j in range(c0 // pg, (c0 + PAGED_CHUNK - 1) // pg + 1))
@@ -192,15 +227,16 @@ def paged_chunk_fully_valid(c0: int, cached: int, hist_end: int, page_row, pg: i
 def paged_chunk_valid(rows, c: int, n_page: int, cached: int, new_len: int, hist_end: int,
                       S: int, page_row, pg: int, maxp: int) -> torch.Tensor:
     """The mask of chunk c for query rows `rows` [R] (int64), [R, 64], live
-    rows only: a page chunk's column test (below the cache and the history
-    end, page set), or a tail chunk's delta mask."""
+    rows only: a page chunk's column test (one of its keys, below the cache
+    and the history end, page set), or a tail chunk's delta mask."""
     j = torch.arange(PAGED_CHUNK)
     if c < n_page:
-        col = c * PAGED_CHUNK + j
+        c0, n = paged_chunk_span(c, pg)
+        col = c0 + j
         page = col // pg
         row_ids = torch.as_tensor(page_row, dtype=torch.int64)
         set_ = (page < maxp) & (row_ids[page.clamp(max=maxp - 1)] >= 0)
-        ok = (col < min(cached, hist_end)) & set_
+        ok = (j < n) & (col < min(cached, hist_end)) & set_
         return ok[None, :].expand(len(rows), PAGED_CHUNK)
     t = (c - n_page) * PAGED_CHUNK + j
     col = (cached + t)[None, :]
@@ -236,11 +272,12 @@ def paged_hstu_delta_attention_split_ref(
         he = cached + nl - tgt[b]
         prow = page_table[b].tolist()
 
-        def page_rows(x, c):      # [64, H, ...] of chunk c's cached positions
+        def page_rows(x, c):      # [64, H, ...] of chunk c's cached positions, 0 past its keys
             rows = []
-            for pos in range(c * PAGED_CHUNK, (c + 1) * PAGED_CHUNK):
+            c0, n = paged_chunk_span(c, pg)
+            for pos in range(c0, c0 + PAGED_CHUNK):
                 j = pos // pg
-                pid = prow[j] if j < maxp else -1
+                pid = prow[j] if j < maxp and pos < c0 + n else -1
                 rows.append(x[pid, pos % pg].float() if pid >= 0 else torch.zeros_like(x[0, 0],
                                                                                      dtype=torch.float32))
             return torch.stack(rows)
@@ -275,8 +312,7 @@ def paged_hstu_delta_attention_split_ref(
                     p = F.silu(x) * inv
                     if page and quant:
                         p = p * page_rows(v_scales, c).T[None]
-                    if not (page and paged_chunk_fully_valid(c * PAGED_CHUNK, cached, he, prow,
-                                                             pg, maxp)):
+                    if not (page and paged_chunk_fully_valid(c, cached, he, prow, pg, maxp)):
                         ok = paged_chunk_valid(rows, c, n_page, cached, nl, he, S, prow, pg, maxp)
                         p = torch.where(ok[:, None, :], p, torch.zeros(()))
                     part += torch.einsum("rhn,nhd->rhd", p.to(pdt).float(), vc)
@@ -366,6 +402,7 @@ def paged_launch_plan(q, k_pages, page_table) -> PagedPlan:
     """The plan the wrapper launches the bf16 and int8 kernels with: from the
     shapes, and what the card holds (CUDA tensors)."""
     B, S, H, dh = q.shape
+    dh = instance_head_dim(dh, _HEAD_DIMS)   # the instance a padded call launches
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     int8 = k_pages.dtype == torch.int8
     return paged_split_plan(
@@ -381,11 +418,20 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: error {err}")
 
 
+def _padded(q, k_pages, v_pages, new_k, new_v):
+    """The operands zero-padded to the next built head dim, and the head dim
+    to slice the output back to."""
+    dh = q.shape[-1]
+    d = instance_head_dim(dh, _HEAD_DIMS)
+    return tuple(pad_head_dim(x, d) for x in (q, k_pages, v_pages, new_k, new_v)), dh
+
+
 def _launch_cuda(q, k_pages, v_pages, page_table, cached_len, new_k, new_v,
                  new_lens, num_targets, alpha, scaling_seqlen):
     dev, dt = q.device, q.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"paged attention kernel takes bf16 or fp32, got {dt}")
+    (q, k_pages, v_pages, new_k, new_v), dh0 = _padded(q, k_pages, v_pages, new_k, new_v)
     B, S, H, dh, P, pg, maxp = _check_operands(
         q, k_pages, v_pages, page_table, cached_len, new_k, new_v, new_lens,
         num_targets, dt)
@@ -407,7 +453,7 @@ def _launch_cuda(q, k_pages, v_pages, page_table, cached_len, new_k, new_v,
         )
     _raise_on(err, "paged_hstu_delta_attention")
     paged_hstu_delta_attention.launches += 1
-    return out
+    return unpad_head_dim(out, dh0)
 
 
 _ARGTYPES_INT8 = (
@@ -420,14 +466,22 @@ def paged_hstu_delta_attention_int8(
     q, k_pages, v_pages, k_scales, v_scales, page_table, cached_len, new_k,
     new_v, new_lens, num_targets, alpha: float, scaling_seqlen: float,
 ):
-    """The int8 instance of the kernel: CUDA tensors only, bf16 q / new_k /
-    new_v, int8 pages [P, pg, H, dh] with fp32 scales [P, pg, H]. `launches`
-    counts its launches."""
+    """The int8 instance of the kernel: CUDA tensors only, int8 pages
+    [P, pg, H, dh] with fp32 scales [P, pg, H]; q / new_k / new_v bf16, or
+    fp32 (cast to bf16 here, the output back to fp32). `launches` counts its
+    launches."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the int8 paged attention kernel takes CUDA tensors, got {dev}")
+    if q.dtype == torch.float32:
+        bf = lambda x: x.to(torch.bfloat16)
+        return paged_hstu_delta_attention_int8(
+            bf(q), k_pages, v_pages, k_scales, v_scales, page_table, cached_len, bf(new_k),
+            bf(new_v), new_lens, num_targets, alpha, scaling_seqlen).float()
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"the int8 paged attention kernel takes bf16 queries, got {q.dtype}")
+        raise TypeError(f"the int8 paged attention kernel takes bf16 or fp32 queries, "
+                        f"got {q.dtype}")
+    (q, k_pages, v_pages, new_k, new_v), dh0 = _padded(q, k_pages, v_pages, new_k, new_v)
     B, S, H, dh, P, pg, maxp = _check_operands(
         q, k_pages, v_pages, page_table, cached_len, new_k, new_v, new_lens,
         num_targets, torch.int8)
@@ -449,7 +503,7 @@ def paged_hstu_delta_attention_int8(
         )
     _raise_on(err, "paged_hstu_delta_attention_int8")
     paged_hstu_delta_attention_int8.launches += 1
-    return out
+    return unpad_head_dim(out, dh0)
 
 
 paged_hstu_delta_attention_int8.launches = 0

@@ -10,9 +10,16 @@ Usage:
 
 `--device` defaults to CUDA and raises without a card. What needs several
 devices raises NotImplementedError naming the ROADMAP group that ports it:
-a tensor-parallel size above 1 and `sequence_parallel` (A5, distribution),
-and `DynamicEmbeddingArgs.caching` (A4, embedding extras). With one device
-the data-parallel size is 1, so `balanced_shuffler` has nothing to balance.
+a tensor-parallel size above 1 and `sequence_parallel` (A5, distribution).
+With one device the data-parallel size is 1, so `balanced_shuffler` has
+nothing to balance.
+
+`DynamicEmbeddingArgs.caching` makes the item table a cache on the card over
+a host tier (`dynamicemb/hybrid_storage.py`; the action table stays
+uncached): each train batch's item ids are prefetched before its step,
+inside the step's timer. As in the JAX package, eval batches are not
+prefetched (their misses read the eval initializer) and a checkpoint holds
+the device tier only.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from recsys_examples_torch.dynamicemb.dynamicemb_config import (
     DynamicEmbScoreStrategy,
     DynamicEmbTableOptions,
 )
+from recsys_examples_torch.dynamicemb.hybrid_storage import HybridDynamicEmbedding
 from recsys_examples_torch.dynamicemb.optimizer import SparseOptimizerArgs
 from recsys_examples_torch.dynamicemb.sharded_collection import ShardedDynamicEmbedding
 from recsys_examples_torch.models.ranking_gr import RankingGR
@@ -91,10 +99,6 @@ def build_sparse_tables(ds, net, demb, device) -> dict:
     table when the dataset has actions; {} with static tables."""
     if not demb.use_dynamic_embedding:
         return {}
-    if demb.caching:
-        raise NotImplementedError(
-            "DynamicEmbeddingArgs.caching (a device table over a host tier) belongs "
-            "to the embedding extras (ROADMAP group A4)")
     opt = SparseOptimizerArgs(optimizer=demb.optimizer, learning_rate=demb.learning_rate,
                               weight_decay=demb.weight_decay)
     sparse = {"item": ShardedDynamicEmbedding(DynamicEmbeddingTable(
@@ -113,6 +117,14 @@ def build_sparse_tables(ds, net, demb, device) -> dict:
                 bucket_capacity=demb.bucket_capacity,
             ), opt), mesh=None, device=device)
     return sparse
+
+
+def build_cache(demb, sparse, device):
+    """The item table's host tier and prefetch (`DynamicEmbeddingArgs.caching`
+    with dynamic tables), or None."""
+    if not (demb.use_dynamic_embedding and demb.caching):
+        return None
+    return HybridDynamicEmbedding(sparse["item"].table, device=device)
 
 
 def static_tables(ds, net, demb):
@@ -235,7 +247,7 @@ class StepProfiler:
             self.last, self.prof = self.prof, None
 
 
-def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str):
+def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str, cache=None):
     """The training loop both entries share: returns (state, the profile of
     the `TrainerArgs.profile` window or None).
 
@@ -243,7 +255,9 @@ def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str):
     initialise their params on the first batch and train from the second;
     this loop draws the first batch too, so both train on one stream. Each
     step waits for the device once (`StepTimer`); `evaluate(state)` runs at
-    every `eval_interval` and at the end."""
+    every `eval_interval` and at the end. `cache` (a HybridDynamicEmbedding
+    over the item table) prefetches each train batch's item ids inside the
+    step's timer."""
     device = trainer.device
     it = PrefetchIterator(batch_iterator(ds, trainer_args),
                           depth=int(os.environ.get("REXTPU_PREFETCH_DEPTH", "2")))
@@ -263,6 +277,8 @@ def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str):
                 break
             profiler.before(i)
             timer.start()
+            if cache is not None:
+                cache.prefetch(state.sparse["item"], np.asarray(batch.features["item"].values))
             state, metrics = trainer.train_step(state, batch, dropout_gen)
             dt = timer.stop()
             loss = float(metrics["loss"])
@@ -292,12 +308,14 @@ def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str):
     return state, profiler.last
 
 
-# the profile of the last main()'s `TrainerArgs.profile` window, for tools
+# the profile of the last main()'s `TrainerArgs.profile` window, and its item
+# table's cache (`DynamicEmbeddingArgs.caching`) or None, for tools
 LAST_PROFILE = None
+LAST_CACHE = None
 
 
 def main(argv=None):
-    global LAST_PROFILE
+    global LAST_PROFILE, LAST_CACHE
     device, trainer_args = read_args(argv, "pretrain_gr_ranking")
     ds = gin_config.make("DatasetArgs")
     net = gin_config.make("NetworkArgs")
@@ -315,17 +333,19 @@ def main(argv=None):
         prediction_head_bias=rank_args.prediction_head_bias,
         num_tasks=rank_args.num_tasks,
     )
+    sparse = build_sparse_tables(ds, net, demb, device)
     trainer = GRTrainer(
         RankingGR(hstu_cfg, task_cfg, device=device),
         make_optimizer(opt.learning_rate, opt.optimizer_str, opt.adam_beta1,
                        opt.adam_beta2, opt.adam_eps, opt.weight_decay),
-        build_sparse_tables(ds, net, demb, device), device=device,
+        sparse, device=device,
     )
+    LAST_CACHE = build_cache(demb, sparse, device)
     state, LAST_PROFILE = train(
         trainer, ds, net, trainer_args,
         lambda st: run_eval(trainer, st, ds, trainer_args, rank_args,
                             iters=trainer_args.eval_iters),
-        "training")
+        "training", cache=LAST_CACHE)
     return state
 
 

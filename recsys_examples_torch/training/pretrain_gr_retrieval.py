@@ -8,9 +8,11 @@ Usage:
         --gin-config-file configs/retrieval_movielens_1m.gin \\
         [--max-train-iters N] [--device cuda|cpu]
 
-`--device` defaults to CUDA and raises without a card; the mesh and
-caching options raise as in `pretrain_gr_ranking`, whose training loop
-(checkpoints included) this entry shares.
+`--device` defaults to CUDA and raises without a card; the mesh options
+raise as in `pretrain_gr_ranking`, whose training loop (checkpoints
+included) this entry shares. As in the JAX package, this entry has no
+embedding cache: `DynamicEmbeddingArgs.caching` leaves its tables as they
+are.
 """
 from __future__ import annotations
 

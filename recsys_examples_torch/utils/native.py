@@ -6,8 +6,10 @@ in recsys_examples_tpu/data/batch_shuffler.py).
 `recsys_examples_torch/_build/` (listed in .gitignore) as
 `lib<name>-<hash>.so`, the hash covering the source and the flags, so an
 edited source is rebuilt; nothing is written under `csrc/`. A failed build
-leaves the loader returning None, and its callers take their Python paths;
-the compiler's output is kept in `BUILD_ERRORS`. Plain C ABI, no pybind11.
+leaves the loader returning None and keeps the compiler's output in
+`BUILD_ERRORS`: the batch packer and the partitioner then take their Python
+paths, while `NativeHostStore` (the host tiers' store, `csrc/host_store.cpp`)
+raises, having no other path. Plain C ABI, no pybind11.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -91,3 +93,97 @@ def kk_partition_lib() -> Optional[ctypes.CDLL]:
         lib.lpt_partition.argtypes = argtypes
         lib.kk_partition.restype = lib.lpt_partition.restype = None
     return lib
+
+
+def host_store_lib() -> ctypes.CDLL:
+    """csrc/host_store.cpp's library; raises when it cannot be built."""
+    fresh = "host_store" not in _LIBS
+    lib = _build_and_load("host_store")
+    if lib is None:
+        raise RuntimeError("csrc/host_store.cpp did not build or load: "
+                           + BUILD_ERRORS.get("host_store", "?"))
+    if fresh:
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.host_store_create.restype = vp
+        lib.host_store_create.argtypes = [i64]
+        lib.host_store_destroy.argtypes = [vp]
+        lib.host_store_size.restype = i64
+        lib.host_store_size.argtypes = [vp]
+        lib.host_store_put.argtypes = [vp, vp, vp, vp, i64]
+        lib.host_store_get.argtypes = [vp, vp, vp, vp, vp, i64]
+        lib.host_store_erase.argtypes = [vp, vp, i64]
+        lib.host_store_export.restype = i64
+        lib.host_store_export.argtypes = [vp, i64, vp, i64, vp, vp, vp]
+    return lib
+
+
+class NativeHostStore:
+    """int64 key -> (float32 row [row_dim], int64 score), in host RAM, over
+    csrc/host_store.cpp (counterpart of recsys_examples_tpu/utils/native.py
+    `NativeHostStore`, without its dict fallback: the store raises when the
+    library cannot be built)."""
+
+    def __init__(self, row_dim: int):
+        self.row_dim = row_dim
+        self._lib = host_store_lib()
+        self._h = ctypes.c_void_p(self._lib.host_store_create(row_dim * 4))
+
+    def __len__(self) -> int:
+        return int(self._lib.host_store_size(self._h))
+
+    def put(self, keys: np.ndarray, rows: np.ndarray,
+            scores: Optional[np.ndarray] = None) -> None:
+        """Insert or overwrite rows (score 0 when `scores` is None)."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        rows = np.ascontiguousarray(rows, np.float32)
+        n = len(keys)
+        if n == 0:
+            return
+        scores = np.zeros((n,), np.int64) if scores is None else np.ascontiguousarray(
+            scores, np.int64)
+        self._lib.host_store_put(self._h, _ptr(keys), _ptr(rows), _ptr(scores), n)
+
+    def get_scored(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rows [n, row_dim] f32, scores [n] int64, found [n] bool); rows
+        and scores of missing keys are 0."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        n = len(keys)
+        rows = np.zeros((n, self.row_dim), np.float32)
+        scores = np.zeros((n,), np.int64)
+        found = np.zeros((n,), np.uint8)
+        if n:
+            self._lib.host_store_get(self._h, _ptr(keys), _ptr(rows), _ptr(scores),
+                                     _ptr(found), n)
+        return rows, scores, found.astype(bool)
+
+    def get(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows [n, row_dim] f32, found [n] bool)."""
+        rows, _, found = self.get_scored(keys)
+        return rows, found
+
+    def erase(self, keys: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.int64)
+        if len(keys):
+            self._lib.host_store_erase(self._h, _ptr(keys), len(keys))
+
+    def export(self, score_threshold: int = 0, batch: int = 65536
+               ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Yield (keys, rows, scores) batches with score >= threshold, in the
+        store's slot order."""
+        cursor = ctypes.c_int64(0)
+        while True:
+            keys = np.zeros((batch,), np.int64)
+            rows = np.zeros((batch, self.row_dim), np.float32)
+            scores = np.zeros((batch,), np.int64)
+            n = int(self._lib.host_store_export(
+                self._h, score_threshold, ctypes.byref(cursor), batch,
+                _ptr(keys), _ptr(rows), _ptr(scores)))
+            if n == 0:
+                break
+            yield keys[:n], rows[:n], scores[:n]
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h is not None:
+            self._lib.host_store_destroy(h)
+            self._h = None

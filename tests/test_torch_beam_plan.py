@@ -241,3 +241,28 @@ def test_split_with_a_context_broadcast_over_the_batch(G, N):
     for splits in (1, 4):
         got = beam_decode_attn_split_ref(*tin, scale, splits=splits).numpy()
         _within(got, kernel, FP32_RTOL, FP32_ATOL, FP32_REL_L2)
+
+
+@pytest.mark.parametrize("D, d", [(16, 32), (48, 64), (96, 128), (160, 256), (200, 256),
+                                  (256, 256)])
+def test_head_dim_padding(D, d):
+    """K7 is built for head dims 32, 64, 128 and 256; its wrapper zero-pads
+    any other head dim to the next one with sm_scale as the caller gave it.
+    The padded plain version (GQA, a beam tail) equals the unpadded one on
+    the first D columns (to 1e-5: the einsums' fp32 sums change order with
+    the width) and is zero past them."""
+    from recsys_examples_torch.ops.beam_decode_attention import _HEAD_DIMS
+    from recsys_examples_torch.ops.head_dims import instance_head_dim, pad_head_dim
+
+    assert instance_head_dim(D, _HEAD_DIMS) == d
+    rng = np.random.default_rng(D)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    B, W, H, Hkv, S, N = 2, 3, 4, 2, 7, 2
+    args = [f(B, W, H, D), f(B, S, Hkv, D), f(B, S, Hkv, D), torch.tensor([5, 7]),
+            f(B, N, W, Hkv, D), f(B, N, W, Hkv, D),
+            torch.from_numpy(rng.integers(0, W, (B, N, W)))]
+    want = beam_decode_attn_ref(*args, sm_scale=0.3)
+    padded = [pad_head_dim(x, d) if x.is_floating_point() else x for x in args]
+    got = beam_decode_attn_ref(*padded, sm_scale=0.3)
+    assert not got[..., D:].any()
+    torch.testing.assert_close(got[..., :D], want, rtol=1e-5, atol=1e-5)

@@ -275,3 +275,32 @@ def test_fwd_tile_plan_matches_jax_predicates(sq):
                 want = False if full is None else bool(full)
                 assert tile_fully_valid(q0, k0, n, c, t, causal=sq["causal"],
                                         max_attn_len=sq["window"]) == want, (q0, k0)
+
+
+@pytest.mark.parametrize("dh, d", [(16, 32), (48, 64), (96, 128), (160, 256)])
+def test_head_dim_padding(dh, d):
+    """K1-K5 are built for head dims 32, 64, 128 and 256; their wrappers pad q,
+    k, v and dO with zero columns to the next one and slice the outputs and
+    gradients, alpha and the scaling unchanged. The plain forward and
+    backward at the padded dim equal the unpadded ones on the first dh
+    columns and are zero past them."""
+    from recsys_examples_torch.ops.hstu_attention import _padded
+    from recsys_examples_torch.ops.hstu_attention_ref import hstu_attn_bwd_ref, hstu_mha_reference
+
+    rng = np.random.default_rng(dh)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    offs = torch.tensor([0, 5, 12, 12, 20])
+    T, H = 20, 2
+    q, k, v, do = f(T, H, dh), f(T, H, dh), f(T, H, dh), f(T, H, dh)
+    (qp, kp, vp, dop), dh0 = _padded(q, k, v, do)
+    assert dh0 == dh and qp.shape[-1] == d
+    kw = dict(num_targets=torch.tensor([1, 2, 0, 3]), scaling_seqlen=9)
+    want = hstu_mha_reference(9, 0.4, q, k, v, offs, **kw)
+    got = hstu_mha_reference(9, 0.4, qp, kp, vp, offs, **kw)
+    assert not got[..., dh:].any()
+    torch.testing.assert_close(got[..., :dh], want, rtol=1e-5, atol=1e-5)
+    g_want = hstu_attn_bwd_ref(9, 0.4, q, k, v, do, offs, **kw)[:3]
+    g_got = hstu_attn_bwd_ref(9, 0.4, qp, kp, vp, dop, offs, **kw)[:3]
+    for a, b in zip(g_got, g_want):
+        assert not a[..., dh:].any()
+        torch.testing.assert_close(a[..., :dh], b, rtol=1e-5, atol=1e-5)

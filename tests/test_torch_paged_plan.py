@@ -16,13 +16,17 @@ from hypothesis import strategies as st
 
 from recsys_examples_torch.ops.paged_hstu_attention import (
     PAGED_CHUNK,
+    _padded,
     paged_chunk_counts,
     paged_chunk_fully_valid,
     paged_chunk_valid,
     paged_cta_chunks,
+    paged_chunk_span,
     paged_delta_valid,
     paged_hstu_delta_attention_ref,
     paged_hstu_delta_attention_split_ref,
+    paged_page_chunking,
+    paged_page_chunks,
     paged_query_blocks,
     paged_split_plan,
     quantize_kv_pages,
@@ -46,7 +50,7 @@ def users(draw):
     """One user's cache and new tokens: page size, page-table row with unset
     pages, a cache that may end inside a chunk or past the table, new
     tokens, targets, S and a split count."""
-    pg = draw(st.sampled_from([8, 16, 32, 64, 128]))
+    pg = draw(st.sampled_from([8, 12, 16, 24, 32, 48, 64, 96, 100, 128]))
     maxp = draw(st.integers(1, 12))
     S = draw(st.integers(1, 200))
     # often within a few positions of a chunk edge
@@ -90,11 +94,17 @@ def test_chunks_cover_each_once_and_hold_every_valid_pair(u):
             assert not valid[m0:m0 + rows].any()
             continue
         # no chunk lies wholly past the cache's reach or the block's rows
-        assert (n_page - 1) * PAGED_CHUNK < min(u["cached"], Nc) or n_page == 0
+        assert n_page == 0 or paged_chunk_span(n_page - 1, u["pg"])[0] < min(u["cached"], Nc)
         assert (n_tail - 1) * PAGED_CHUNK < min(u["new_len"], u["S"], m0 + rows)
+        # the page chunks tile [0, reach) in order, none crossing a unit of pages
+        unit = paged_page_chunking(u["pg"])[0]
+        ends = [sum(paged_chunk_span(c, u["pg"])) for c in range(n_page)]
+        starts = [paged_chunk_span(c, u["pg"])[0] for c in range(n_page)]
+        assert starts == ([0] + ends[:-1] if ends else [])
+        assert all(s // unit == (e - 1) // unit for s, e in zip(starts, ends))
         i, col = np.nonzero(valid[m0:m0 + rows])
         page, tail = col[col < Nc], col[col >= Nc] - Nc
-        assert (page < n_page * PAGED_CHUNK).all()
+        assert (page < (ends[-1] if ends else 0)).all()
         assert (tail < n_tail * PAGED_CHUNK).all()
 
 
@@ -116,12 +126,12 @@ def test_certified_chunks_are_all_valid_and_forms_match_the_mask(u):
             form = paged_chunk_valid(r, c, n_page, u["cached"], u["new_len"], he, u["S"],
                                      u["row"], u["pg"], u["maxp"]).numpy()
             if c < n_page:
-                cols = np.arange(c * PAGED_CHUNK, (c + 1) * PAGED_CHUNK)
-                inside = cols < Nc
+                c0, keys = paged_chunk_span(c, u["pg"])
+                cols = np.arange(c0, c0 + PAGED_CHUNK)
+                inside = (cols < Nc) & (cols < c0 + keys)
                 dense = np.zeros_like(form)
                 dense[:, inside] = want[:, cols[inside]]
-                if paged_chunk_fully_valid(c * PAGED_CHUNK, u["cached"], he, u["row"], u["pg"],
-                                           u["maxp"]):
+                if paged_chunk_fully_valid(c, u["cached"], he, u["row"], u["pg"], u["maxp"]):
                     assert dense.all()
             else:
                 t = np.arange((c - n_page) * PAGED_CHUNK, (c - n_page + 1) * PAGED_CHUNK)
@@ -134,7 +144,7 @@ def test_certified_chunks_are_all_valid_and_forms_match_the_mask(u):
 def test_plan_follows_the_cards_clusters():
     """One consumer for S <= 64, two above; the largest split whose clusters
     the card holds at once, at most 16 and at most the chunks a user has;
-    page sizes the kernel cannot tile are refused."""
+    every page size is planned, in chunks of `paged_page_chunking`."""
     serve = paged_split_plan(8, 128, 4, 19, 128, h100)
     assert (serve.splits, serve.consumers, serve.rows, serve.grid) == (3, 2, 128, (3, 4, 8))
     assert paged_split_plan(8, 512, 4, 19, 128, h100).grid == (1, 4, 32)
@@ -143,9 +153,52 @@ def test_plan_follows_the_cards_clusters():
     assert paged_split_plan(8, 8, 4, 31, 128, h100).splits == 3
     assert paged_split_plan(64, 8, 4, 31, 128, h100).splits == 1   # two waves anyway
     assert paged_split_plan(1, 40, 1, 1, 16, h100).splits == 2     # 1 page chunk + 1 tail
-    for pg in (4, 24, 48, 96):
-        with pytest.raises(ValueError, match="page sizes 8, 16, 32"):
-            paged_split_plan(1, 8, 1, 4, pg, h100)
+    # 4 pages of 24: 2 chunks of 48 keys, + 1 tail; of 96: 8 (64 + 32 a page);
+    # of 4 rows (not on an 8-row box): 4 chunks of one page
+    assert paged_split_plan(1, 8, 1, 4, 24, h100).splits == 3
+    assert paged_split_plan(1, 8, 1, 4, 96, h100).splits == 9
+    assert paged_split_plan(1, 8, 1, 4, 4, h100).splits == 5
+    with pytest.raises(ValueError, match="page size"):
+        paged_split_plan(1, 8, 1, 4, 0, h100)
+
+
+@pytest.mark.parametrize("pg, want", [
+    (8, (64, 1, 8, 8)), (16, (64, 1, 4, 16)), (32, (64, 1, 2, 32)), (64, (64, 1, 1, 64)),
+    (128, (128, 2, 1, 64)), (24, (48, 1, 2, 24)), (48, (48, 1, 1, 48)), (40, (40, 1, 1, 40)),
+    (12, (12, 1, 1, 12)), (4, (4, 1, 1, 4)), (96, (96, 2, 1, 64)), (100, (100, 2, 1, 64))])
+def test_page_chunking(pg, want):
+    """Chunks of whole pages on 8-row boxes within 64 keys, or 64-key cuts of
+    a larger page with a remainder; the spans walk the cache in order."""
+    assert paged_page_chunking(pg) == want
+    unit, cpu = want[:2]
+    spans = [paged_chunk_span(c, pg) for c in range(3 * cpu)]
+    assert [s for s, _ in spans] == [sum(x) for x in [(0, 0)] + spans[:-1]]
+    assert all(0 < n <= PAGED_CHUNK for _, n in spans)
+    assert sum(n for _, n in spans[:cpu]) == unit
+    for reach in range(0, 3 * unit + 1):   # the fewest chunks that cover [0, reach)
+        n = paged_page_chunks(reach, pg)
+        covered = sum(k for _, k in spans[:n])
+        assert covered >= reach and (n == 0 or covered - spans[n - 1][1] < reach)
+
+
+@pytest.mark.parametrize("dh, d", [(16, 32), (32, 32), (48, 64), (96, 128), (160, 256),
+                                   (224, 256), (256, 256)])
+def test_head_dim_padding(dh, d):
+    """Any head dim pads with zero columns to the next built one (K6's
+    wrapper): q, the pages and the new tokens, the pages' scales untouched;
+    the padded plain version equals the unpadded one on the first dh
+    columns (to 1e-5: fp32 sums change order with the width) and is zero
+    past them."""
+    case = _case(5, 2, 9, 2, dh, 6, 16, 3, cached=[20, 0], new_lens=[9, 4], targets=None)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in case.items()}
+    (q, kp, vp, nk, nv), dh0 = _padded(t["q"], t["k_pages"], t["v_pages"], t["new_k"],
+                                       t["new_v"])
+    assert dh0 == dh and {x.shape[-1] for x in (q, kp, vp, nk, nv)} == {d}
+    args = dict(t, q=q, k_pages=kp, v_pages=vp, new_k=nk, new_v=nv)
+    got = paged_hstu_delta_attention_ref(*[args[k] for k in ORDER], 0.3, 50.0)
+    want = paged_hstu_delta_attention_ref(*[t[k] for k in ORDER], 0.3, 50.0)
+    assert not got[..., dh:].any()
+    torch.testing.assert_close(got[..., :dh], want, rtol=1e-5, atol=1e-5)
 
 
 def _case(seed, B, S, H, dh, P, pg, maxp, cached, new_lens, targets):
@@ -177,8 +230,9 @@ def _pages_case(pg):
                  cached=[0, 37, 128, 100], new_lens=[72, 13, 70, 1], targets=[3, 0, 64, 1])
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "int8_bf16q"])
-@pytest.mark.parametrize("pg", [8, 16])
+@pytest.mark.parametrize("pg, mode", [
+    (pg, mode) for pg in (8, 16) for mode in ("fp32", "bf16", "int8", "int8_bf16q")
+] + [(24, "int8"), (48, "bf16")])     # chunks of 48 keys: two pages of 24, one of 48
 def test_split_matches_pallas_interpret(mode, pg):
     """The kernel's arithmetic, split 1, 2, 4 and 8 ways, against the Pallas
     kernel in interpret mode on the same inputs. fp32 and bf16 (both round P

@@ -16,6 +16,9 @@ ENTRY_SLICE = (
     "data/batch_shuffler.py", "training/checkpoint.py", "modules/hstu_block.py",
     "training/pretrain_gr_ranking.py", "modules/config.py", "modules/losses.py",
     "models/retrieval_gr.py", "training/pretrain_gr_retrieval.py",
+    "dynamicemb/hybrid_storage.py", "dynamicemb/tiered_storage.py", "dynamicemb/planner.py",
+    "dynamicemb/pooled.py", "dynamicemb/exportable_tables.py",
+    "dynamicemb/sharded_collection.py", "inference/kvcache.py", "ops/head_dims.py",
 )
 
 

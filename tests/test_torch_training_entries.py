@@ -201,10 +201,61 @@ def test_ranking_main_on_a_movielens_file_matches_jax(tmp_path, monkeypatch, lin
     assert (tmp_path / "ckpt" / "iter_0000002" / "dynamicemb_module" / "item.npz").exists()
 
 
+CACHING = RANKING + [
+    'TrainerArgs.max_train_iters = 4',
+    'DatasetArgs.item_vocab_size = 150',
+    'DynamicEmbeddingArgs.caching = True',
+    'DynamicEmbeddingArgs.capacity = 32',
+    'DynamicEmbeddingArgs.bucket_capacity = 16',
+]
+
+
+def test_caching_main_matches_jax(tmp_path, monkeypatch, lines):
+    """`DynamicEmbeddingArgs.caching` in the ranking entry: a 64-row item
+    table (two buckets of 32) over the host tier, ids from 150, four steps,
+    so that the later prefetches evict and onboard. Losses, dense params,
+    the device tier (keys, scores and counters bit for bit, values to
+    VALUE_TOL) and the host tier (keys and scores bit for bit, rows to
+    VALUE_TOL) and the cache's counters match the JAX entry's; on this
+    stream the JAX prefetch evicts none of a batch's keys, so the two
+    caches take the same victims."""
+    from recsys_examples_tpu.dynamicemb import hybrid_storage as jhs
+
+    made = []
+    init = jhs.HybridDynamicEmbedding.__init__
+    monkeypatch.setattr(jhs.HybridDynamicEmbedding, "__init__",
+                        lambda self, *a, **k: (made.append(self), init(self, *a, **k))[1])
+    jstate, tstate = _run_both(tmp_path, monkeypatch, CACHING, j_rank, t_rank, TRanking)
+    _assert_losses(lines, 4)
+    _assert_states_close(jstate, tstate)
+    jcache, tcache = made[0], t_rank.LAST_CACHE
+    assert tcache.stats == jcache.stats
+    assert tcache.stats["evict_flushes"] > 0 and tcache.stats["host_onboards"] > 0, tcache.stats
+    host = lambda c: {int(k): (r, int(sc)) for ks, rs, ss in c.host.export()
+                      for k, r, sc in zip(ks, rs, ss)}
+    th, jh = host(tcache), host(jcache)
+    assert th.keys() == jh.keys() and th
+    for k, (r, sc) in jh.items():
+        assert th[k][1] == sc
+        np.testing.assert_allclose(th[k][0], r, **VALUE_TOL)
+
+
+def test_retrieval_ignores_caching_as_jax(tmp_path):
+    """The JAX retrieval entry has no embedding cache and trains its tables
+    as they are under `caching`; so does the port's."""
+    cfg = tmp_path / "x.gin"
+    cfg.write_text("\n".join(RETRIEVAL + ['TrainerArgs.max_train_iters = 1',
+                                          'DynamicEmbeddingArgs.caching = True']))
+    tgin.clear_config()
+    t_rank.LAST_CACHE = None
+    state = t_ret.main(["--gin-config-file", str(cfg), "--device", "cpu"])
+    assert state.step == 1 and t_rank.LAST_CACHE is None
+    assert int(state.sparse["item"].table.inserted[0]) > 0
+
+
 @pytest.mark.parametrize("gin,match", [
     ('TensorModelParallelArgs.tensor_model_parallel_size = 2', "A5"),
     ('TensorModelParallelArgs.sequence_parallel = True', "A5"),
-    ('DynamicEmbeddingArgs.caching = True', "A4"),
 ])
 @pytest.mark.parametrize("entry", [t_rank, t_ret], ids=["ranking", "retrieval"])
 def test_unported_options_raise(tmp_path, entry, gin, match):

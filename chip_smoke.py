@@ -176,6 +176,16 @@ Phases (any failure exits non-zero):
              versions: K1-K5 at head dims 16, 48 and 96 (padded), K6 at head
              dim 96 and page sizes 24, 48 and 100, bf16 and int8 pages, K6-int8
              on fp32 queries, K7 at D 256 (GQA too) and D 96.
+ 18. mesh    the distribution slice at world size 1 over NCCL: (a) a
+             process group from a FileStore in a temp dir; every collective
+             of parallel/collective_ops.py forward and backward on CUDA
+             tensors, and the dynamic table's exchange through
+             all_to_all_single; (b) 14a's config through the ranking entry on
+             the (data 1, model 1) mesh for 4 steps: the losses equal 14a's
+             first four within 1e-5, K1-K3 at 8 launches a step, and against
+             their plain versions at the first attention call; (c) K1-K3
+             against their plain versions at a TP 2 rank's full-width shape,
+             2 x 256 heads, on the first data half of that call's lengths.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -3046,6 +3056,7 @@ def phase_entry_ranking(tmp):
     del fresh, trainer, model, sparse, batches
     torch.cuda.empty_cache()
     return dict(launches=launches, step_ms=statistics.median(r[2] for r in rows[1:]),
+                losses=[r[1] for r in rows],
                 mfu=statistics.median(r[4] for r in rows[1:]), peak_gib=peak_gib,
                 bare_ms=bare_ms, entry_ms=entry_ms, tokens=tokens, inserted=inserted,
                 auc=history[0].tolist())
@@ -3226,6 +3237,157 @@ def phase_entries():
     return res
 
 
+# ---------------------------------------------------------------- phase 18
+def phase_mesh_collectives():
+    """(a) Every collective forward and backward at world size 1 over NCCL:
+    each is the identity there (its backward too, grad_scale scales), and
+    the table's exchange (all_to_all_single with its splits) returns the
+    rows a local lookup returns."""
+    from recsys_examples_torch.dynamicemb.sharded_collection import ShardedDynamicEmbedding
+    from recsys_examples_torch.parallel import collective_ops as co
+    from recsys_examples_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, "cuda")
+    g = mesh.group("data")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    x = torch.randn(37, 24, generator=gen, device="cuda")
+    cot = torch.randn(37, 24, generator=gen, device="cuda")
+    cases = {
+        "gather_along_first_dim": (lambda t: co.gather_along_first_dim(t, g), 1.0),
+        "gather_along_first_dim(replicated)": (
+            lambda t: co.gather_along_first_dim(t, g, replicated_output=True), 1.0),
+        "gather_along_last_dim": (lambda t: co.gather_along_last_dim(t, g), 1.0),
+        "split_along_first_dim": (lambda t: co.split_along_first_dim(t, g), 1.0),
+        "reduce_scatter_first_dim": (lambda t: co.reduce_scatter_first_dim(t, g), 1.0),
+        "all_reduce": (lambda t: co.all_reduce(t, g), 1.0),
+        "copy_to_group": (lambda t: co.copy_to_group(t, g), 1.0),
+        "grad_scale": (lambda t: co.grad_scale(t, 0.5), 0.5),
+        "jagged_allgather": (lambda t: co.jagged_allgather(
+            t, torch.tensor([20, 17], device="cuda"), g)[0], 1.0),
+    }
+    for name, (fn, scale) in cases.items():
+        leaf = x.clone().requires_grad_()
+        out = fn(leaf)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        if not (torch.equal(out, x) and torch.equal(leaf.grad, cot * scale)):
+            raise SystemExit(f"phase18a: {name} is not the identity at world size 1")
+    table = dyn_table(capacity=1 << 16).table
+    sharded = ShardedDynamicEmbedding(table, mesh, device="cuda")
+    local = ShardedDynamicEmbedding(table, None, device="cuda")
+    ids = zipf_ids(np.random.default_rng(SEED + 18), 40_000).cuda()
+    st_m, st_l = sharded.init_state(), local.init_state()
+    _, emb_m, res = sharded.forward(st_m, ids)
+    _, emb_l, res_l = local.forward(st_l, ids)
+    if not torch.equal(emb_m, emb_l):
+        raise SystemExit("phase18a: the exchange's train rows differ from the local lookup's")
+    sharded.backward(st_m, res, emb_m)
+    local.backward(st_l, res_l, emb_l)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, emb_m, res = sharded.forward(st_m, ids, train=False)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, emb_l, _ = local.forward(st_l, ids, train=False)
+    torch.cuda.synchronize()
+    local_ms = (time.perf_counter() - t0) / 3 * 1e3
+    # after a row optimizer step: the token grads' index_add_ sums in any order
+    err = (emb_m - emb_l).abs().max().item()
+    if err > 1e-5 * emb_l.abs().max().item() or int(res.num_overflow.sum()) != 0:
+        raise SystemExit(f"phase18a: the exchange's rows differ from the local lookup's "
+                         f"after a step by {err:.3e}")
+    log(f"phase18a {len(cases)} collectives forward and backward on NCCL at world size 1: "
+        f"identity (grad_scale scales); the table exchange at 40,000 ids "
+        f"({int(res.send_splits.sum())} unique): train rows equal the local lookup's bit "
+        f"for bit, eval rows after a step within {err:.2e}; eval "
+        f"lookup {fwd_ms:.2f} ms through all_to_all_single vs {local_ms:.2f} ms local "
+        f"(host clock, mean of 3)")
+    del st_m, st_l, sharded, local
+    torch.cuda.empty_cache()
+    return dict(exchange_ms=fwd_ms, local_ms=local_ms)
+
+
+def phase_mesh_entry(ranking, tmp):
+    """(b) Phase 14a's config through the ranking entry on the (1, 1) mesh
+    for 4 steps, the launches per step, and K1-K3 at the first attention
+    call; (c) K1-K3 at a TP 2 rank's shape on the first data half."""
+    from recsys_examples_torch.ops import hstu_attention as ha
+    from recsys_examples_torch.training import pretrain_gr_ranking as rank
+    from recsys_examples_torch.training.trainer import GRTrainer
+
+    tag, steps = "phase18b", 4
+    gin = entry_gin(tmp, "mesh.gin", "ranking_kuairand_bench.gin", [
+        f"TrainerArgs.max_train_iters = {steps}", "TrainerArgs.log_interval = 1",
+        "TrainerArgs.eval_interval = 0", "TrainerArgs.eval_iters = 1"])
+    counters = (ha.hstu_attn_fwd_cuda, ha.hstu_attn_bwd_dq_cuda, ha.hstu_attn_bwd_dkv_cuda)
+    per_step, step = [], GRTrainer.train_step
+
+    def counted(self, *a, **k):
+        before = [c.launches for c in counters]
+        out = step(self, *a, **k)
+        per_step.append([c.launches - b for c, b in zip(counters, before)])
+        if self.mesh is None or self.mesh.shape != {"data": 1, "model": 1}:
+            raise SystemExit(f"{tag}: the entry did not train on the (1, 1) mesh")
+        return out
+
+    GRTrainer.train_step = counted
+    try:
+        with FirstAttentionCall() as first:
+            state, launches, entry_log, seconds = run_entry(rank.main, gin)
+    finally:
+        GRTrainer.train_step = step
+    rows = log_entry_steps(tag, entry_log, steps)
+    losses = [r[1] for r in rows]
+    log(f"{tag} the ranking entry on the (data 1, model 1) mesh over NCCL: main() took "
+        f"{seconds:.1f} s; losses {losses}, phase 14a's first {steps}: "
+        f"{ranking['losses'][:steps]}; K1/K2/K3 launches per step {per_step}")
+    if any(abs(a - b) > 1e-5 for a, b in zip(losses, ranking["losses"][:steps])):
+        raise SystemExit(f"{tag}: the mesh path's losses differ from phase 14a's")
+    check_launches(tag, launches, 8, steps, 1)
+    if any(p != [8, 8, 8] for p in per_step):
+        raise SystemExit(f"{tag}: the attention kernels did not carry every layer")
+    del state
+    torch.cuda.empty_cache()
+    check = check_main_path_attention(tag, first.call, 4, 256)
+    c = first.call
+    half = c["lengths"][:len(c["lengths"]) // 2]
+    i32 = lambda v: None if v is None else v[:len(half)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    tp2 = check_jagged_case("tp2_rank", gen, half, 2, 256, c["max_seqlen"], c["mask"],
+                            i32(c["ctx"]), i32(c["tgt"]), phase="phase18c",
+                            scaling_seqlen=c["scaling_seqlen"])
+    log(f"phase18c K1-K3 at a TP 2 rank's shape (2 x 256 heads, B {len(half)}, T "
+        f"{sum(half)}): max_abs_err {tp2['errs']}")
+    return dict(launches=launches, per_step=per_step, losses=losses,
+                errs={t: max(check["errs"][t], tp2["errs"][t]) for t in check["errs"]})
+
+
+def phase_mesh(ranking):
+    """Phase 18: the mesh path at world size 1 over NCCL; the process group
+    is destroyed before it returns."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from recsys_examples_torch.parallel.mesh import init_distributed
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    init_distributed("cuda", dist.FileStore(os.path.join(tmp, "store"), 1), 0, 1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise SystemExit(f"phase18: a CUDA device got {dist.get_backend()}")
+        res = phase_mesh_collectives()
+        res.update(phase_mesh_entry(ranking, tmp))
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3267,6 +3429,7 @@ def main():
     res["cache"] = timed("phase 15", phase_cache, res["entries"]["ranking"]["step_ms"])
     res["kv_offload"] = timed("phase 16", phase_kv_offload, attn)
     res["repairs"] = timed("phase 17", phase_repairs, attn)
+    res["mesh"] = timed("phase 18", phase_mesh, res["entries"]["ranking"])
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -3296,7 +3459,9 @@ def main():
             "replaces": f"recsys_examples_tpu/ops/pallas/hstu_attention.py:{line}",
             "launches": launches_9a[i],     # bench.py's step, phase 9a
             "entry_launches": res["entries"]["ranking"]["launches"][i],   # phase 14a
+            "mesh_launches": res["mesh"]["launches"][i],    # phase 18b, the mesh path
             "max_abs_err": max([train["errs"][t] for t in tags]
+                               + [res["mesh"]["errs"][t] for t in tags]
                                + [c["errs"][t] for c in res["jagged"].values() for t in tags]),
             "ms": train["ms"][kk],
             "plain_ms": train["plain_ms"][kk],

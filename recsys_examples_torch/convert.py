@@ -15,6 +15,13 @@ here needs JAX:
   - `dynamic_table_state` / `dynamic_table_to_numpy`: a training
     `DynamicEmbTableState` (hash table, optional admission counter table,
     step) as nested mappings of field name -> array, both ways.
+  - `tp_state_dict` / `merge_tp_state_dicts`: a flax param tree -> one
+    tensor-parallel rank's shards of the port's state_dict, following
+    `parallel.mesh.TP_PARTITIONS`; and the ranks' shards -> the unsharded
+    state_dict (which `flax_params` turns into the tree).
+  - `dynamic_table_shard`: the JAX package's row-sharded table state (each
+    leaf the W shards' arrays stacked on the leading dim, as its
+    `shard_map` lays them out) -> one data rank's state.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbTableState
 from recsys_examples_torch.dynamicemb.exportable_tables import InferenceTableState
 from recsys_examples_torch.dynamicemb.hashtable import HashTableState
 from recsys_examples_torch.inference.kvcache import KVCacheState
+from recsys_examples_torch.parallel.mesh import partition_dim, shard_tensor
 
 KVCACHE_FIELDS = (
     "k_pages", "v_pages", "user_ids", "user_len", "user_pages", "user_lru",
@@ -141,3 +149,33 @@ def dynamic_table_to_numpy(state: DynamicEmbTableState) -> Dict:
         for f in HASH_TABLE_FIELDS}
     return {"table": tab(state.table), "counter": tab(state.counter),
             "step": to_numpy(state.step)}
+
+
+def tp_state_dict(params: Mapping, tp: int, rank: int) -> Dict[str, torch.Tensor]:
+    """A flax param tree -> tensor-parallel rank `rank`'s state_dict (of
+    `tp`): the params that `TP_PARTITIONS` splits cut to the rank's heads."""
+    return {k: shard_tensor(v, partition_dim(k), tp, rank).clone()
+            for k, v in dense_state_dict(params).items()}
+
+
+def merge_tp_state_dicts(shards) -> Dict[str, torch.Tensor]:
+    """The tensor-parallel ranks' state_dicts (in rank order) -> the
+    unsharded state_dict (replicated params from rank 0)."""
+    out = {}
+    for k, v in shards[0].items():
+        d = partition_dim(k)
+        out[k] = v if d is None or len(shards) == 1 else torch.cat([s[k] for s in shards], d)
+    return out
+
+
+def dynamic_table_shard(arrays: Mapping, world: int, rank: int,
+                        device="cpu") -> DynamicEmbTableState:
+    """Data rank `rank`'s state from the nested mapping of a JAX table state
+    row-sharded over `world` ranks: every leaf is cut to its rank-th equal
+    part of the leading dim (keys and scores [W nb, C], values and opt
+    [W cap, dim], the counters and step [W])."""
+    cut = lambda a: None if a is None else np.split(np.asarray(a), world)[rank]
+    tab = lambda h: None if h is None else {f: cut(h[f]) for f in HASH_TABLE_FIELDS}
+    return dynamic_table_state({"table": tab(arrays["table"]),
+                                "counter": tab(arrays.get("counter")),
+                                "step": cut(arrays["step"])}, device)

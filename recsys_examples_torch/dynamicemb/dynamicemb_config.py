@@ -112,10 +112,13 @@ def hash_keys(keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
     mod n, every term below 2^63 for n < 2^31. Bit-exact with the JAX
     package's uint64 version.
     """
-    if not 0 < num_buckets < (1 << 31):
-        raise ValueError(f"num_buckets {num_buckets} out of range")
-    k = splitmix64(keys.to(torch.int64))
+    return umod(splitmix64(keys.to(torch.int64)), num_buckets)
+
+
+def umod(k: torch.Tensor, n: int) -> torch.Tensor:
+    """The uint64 that int64 `k` holds, mod n (0 < n < 2^31), on int64."""
+    if not 0 < n < (1 << 31):
+        raise ValueError(f"modulus {n} out of range")
     hi = _lsr(k, 32)
     lo = k & _MASK32
-    n = num_buckets
     return ((hi % n) * ((1 << 32) % n) + lo) % n

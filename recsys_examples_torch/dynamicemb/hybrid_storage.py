@@ -1,6 +1,5 @@
 """Device table + host-RAM tier with prefetch: the embedding cache
-(counterpart of recsys_examples_tpu/dynamicemb/hybrid_storage.py), on one
-device.
+(counterpart of recsys_examples_tpu/dynamicemb/hybrid_storage.py).
 
   - device tier: the bucketized table on the card (the "cache");
   - host tier: `HostStorage` (the native C++ store, csrc/host_store.cpp) or
@@ -10,6 +9,13 @@ device.
     initializer) into the device table, and the rows their insert evicts go
     back to the host tier. The train step then finds every batch key on
     the card.
+
+Under a mesh each rank's table shard is the cache for the keys it owns
+(`sharded_collection.route_owner`), and each rank has its own host store:
+`prefetch` takes the global batch's keys and brings the ones this rank owns
+onto its card. The JAX package's single controller keeps one host store for
+all shards and prefetches every owner's bucket in one call; the union of the
+ranks' stores and the sum of their `stats` are its store and stats.
 
 What the JAX package does for its TPU alone is left out: the power-of-two
 bucket padding of `_pack` (one compile per width) and the jitted ops; the
@@ -47,6 +53,7 @@ from recsys_examples_torch.dynamicemb.hashtable import (
 )
 from recsys_examples_torch.dynamicemb.initializer import initialize_embeddings
 from recsys_examples_torch.dynamicemb.optimizer import initial_opt_row
+from recsys_examples_torch.dynamicemb.sharded_collection import route_owner
 from recsys_examples_torch.utils.device import resolve_device
 from recsys_examples_torch.utils.native import NativeHostStore
 from recsys_examples_torch.utils.scatter import masked_set_
@@ -126,16 +133,18 @@ def insert_flush(table: DynamicEmbeddingTable, state: DynamicEmbTableState,
 class HybridDynamicEmbedding:
     """A device table (the cache) over a host tier; `prefetch` keeps each
     batch's keys on the card, so the train step never misses to the host.
-    One device: a `mesh` (the row-sharded cache) belongs to the
-    distribution slice, ROADMAP group A5."""
+    With `mesh`, the table is this rank's shard over the mesh's data axis (or
+    `axis`) and the cache holds the keys this rank owns."""
 
     def __init__(self, table: DynamicEmbeddingTable, host_storage=None, mesh=None,
-                 device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a row-sharded embedding cache (mesh != None) belongs to the distribution "
-                "slice (ROADMAP group A5); pass mesh=None")
+                 axis=None, device="cuda"):
         self.table = table
+        self.mesh = mesh
+        if mesh is None:
+            self.world, self.rank = 1, 0
+        else:
+            axis = axis if axis is not None else mesh.data_axis
+            self.world, self.rank = mesh.size(axis), mesh.index(axis)
         self.device = resolve_device(device)
         self.host = host_storage if host_storage is not None else HostStorage(table.value_dim)
         self.stats = {"lookups": 0, "device_hits": 0, "host_onboards": 0,
@@ -146,13 +155,17 @@ class HybridDynamicEmbedding:
 
     @torch.no_grad()
     def prefetch(self, state: DynamicEmbTableState, keys: np.ndarray) -> DynamicEmbTableState:
-        """Bring the batch's keys onto the card, in place: host-tier rows are
+        """Bring the batch's keys (this rank's, under a mesh, of the global
+        batch's `keys`) onto the card, in place: host-tier rows are
         onboarded, keys in neither tier write-allocated with the key-seeded
         initializer, and the rows the insert evicts flushed to the host
         tier. Reads the lookup's flags and the step from the card (two host
         syncs) and copies the victims back."""
         keys = np.asarray(keys).reshape(-1)
         ukeys = np.unique(keys[keys != EMPTY_KEY])
+        if self.mesh is not None:
+            own = route_owner(torch.from_numpy(ukeys.astype(np.int64)), self.world)
+            ukeys = ukeys[(own == self.rank).numpy()]
         if len(ukeys) == 0:
             return state
         t = state.table

@@ -12,21 +12,29 @@ from recsys_examples_torch.jagged.jagged_tensor import JaggedData
 from recsys_examples_torch.modules.config import HSTUConfig, RankingConfig
 from recsys_examples_torch.modules.embedding import EmbeddingCollection
 from recsys_examples_torch.modules.hstu_block import HSTUBlock
-from recsys_examples_torch.modules.losses import cross_entropy_loss, multi_task_bce_loss
+from recsys_examples_torch.modules.losses import (
+    cross_entropy_loss,
+    data_total,
+    multi_task_bce_loss,
+)
 from recsys_examples_torch.modules.mlp import MLP
 from recsys_examples_torch.ops.jagged import row_to_batch
 
 
 class RankingGR(nn.Module):
     """Submodules `embeddings`, `hstu_block` and `head`, as the flax model
-    names them (`convert.dense_state_dict` maps the params across)."""
+    names them (`convert.dense_state_dict` maps the params across). Under a
+    mesh the HSTU layers are split over "model" and the loss is this rank's
+    share of the global batch's (see `modules/losses.py`)."""
 
-    def __init__(self, hstu_config: HSTUConfig, task_config: RankingConfig, device=None):
+    def __init__(self, hstu_config: HSTUConfig, task_config: RankingConfig, device=None,
+                 mesh=None):
         super().__init__()
         self.hstu_config = hstu_config
         self.task_config = task_config
         self.embeddings = EmbeddingCollection(task_config.embedding_configs, device)
-        self.hstu_block = HSTUBlock(hstu_config, device)
+        self.hstu_block = HSTUBlock(hstu_config, device, mesh)
+        self.data_group = None if mesh is None else mesh.group(mesh.data_axis)
         self.head = MLP(hstu_config.hidden_size, task_config.prediction_head_arch,
                         hstu_config.dtype, device,
                         activation=task_config.prediction_head_act_type,
@@ -73,8 +81,9 @@ class RankingGR(nn.Module):
         nt = self.task_config.num_tasks
         if self.task_config.prediction_head_arch[-1] == nt:
             loss_sum, count = multi_task_bce_loss(logits, labels, valid, nt)
-            loss = loss_sum.sum() / torch.clamp_min(count * nt, 1.0)
+            loss = loss_sum.sum() / torch.clamp_min(data_total(count, self.data_group) * nt,
+                                                    1.0)
         else:
             loss_sum, count = cross_entropy_loss(logits, labels, valid)
-            loss = loss_sum / torch.clamp_min(count, 1.0)
+            loss = loss_sum / torch.clamp_min(data_total(count, self.data_group), 1.0)
         return loss, {"logits": logits, "labels": labels, "valid": valid, "loss": loss}

@@ -17,20 +17,24 @@ from recsys_examples_torch.jagged.jagged_tensor import JaggedData
 from recsys_examples_torch.modules.config import HSTUConfig, RetrievalConfig
 from recsys_examples_torch.modules.embedding import EmbeddingCollection
 from recsys_examples_torch.modules.hstu_block import HSTUBlock
-from recsys_examples_torch.modules.losses import in_batch_sampled_softmax_loss
+from recsys_examples_torch.modules.losses import data_total, in_batch_sampled_softmax_loss
 from recsys_examples_torch.ops.jagged import row_to_batch
 
 
 class RetrievalGR(nn.Module):
     """Submodules `embeddings` and `hstu_block`, as the flax model names
-    them (`convert.dense_state_dict` maps the params across)."""
+    them (`convert.dense_state_dict` maps the params across). Under a mesh
+    the negatives are the global batch's targets and the loss is this rank's
+    share of the global batch's (see `modules/losses.py`)."""
 
-    def __init__(self, hstu_config: HSTUConfig, task_config: RetrievalConfig, device=None):
+    def __init__(self, hstu_config: HSTUConfig, task_config: RetrievalConfig, device=None,
+                 mesh=None):
         super().__init__()
         self.hstu_config = hstu_config
         self.task_config = task_config
         self.embeddings = EmbeddingCollection(task_config.embedding_configs, device)
-        self.hstu_block = HSTUBlock(hstu_config, device)
+        self.hstu_block = HSTUBlock(hstu_config, device, mesh)
+        self.data_group = None if mesh is None else mesh.group(mesh.data_axis)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "RetrievalGR":
@@ -80,8 +84,8 @@ class RetrievalGR(nn.Module):
         valid = (rows < offs[-1]) & has_next
         loss_sum, count = in_batch_sampled_softmax_loss(
             q.float(), target_emb, target_ids, valid,
-            temperature=self.task_config.temperature)
-        loss = loss_sum / count.clamp_min(1.0)
+            temperature=self.task_config.temperature, group=self.data_group)
+        loss = loss_sum / data_total(count, self.data_group).clamp_min(1.0)
         return loss, {
             "query_emb": q,
             "target_emb": target_emb,

@@ -2,10 +2,9 @@
 
 The dtype is a torch dtype. The kernel choice needs no field: a kernel
 wrapper launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
-version for CPU tensors. Fields of unported features (sequence
-parallelism, the ranking eval metrics, table sharding) and the
-TPU-only ones (the Pallas block sizes, the block-aligned layout) are not
-carried over.
+version for CPU tensors. Fields of unported features (the ranking eval
+metrics, table sharding) and the TPU-only ones (the Pallas block sizes, the
+block-aligned layout) are not carried over.
 """
 from __future__ import annotations
 
@@ -45,7 +44,8 @@ class HSTUConfig:
     relative_bias_num_buckets: int = 128
     relative_bias_max_distance: int = 1024
     position_encoding_config: Optional[PositionEncodingConfig] = None
-    tensor_model_parallel_size: int = 1         # > 1: not ported yet
+    tensor_model_parallel_size: int = 1   # > 1: heads split over the mesh's "model" axis
+    sequence_parallel: bool = False       # with TP > 1: tokens split over "model" too
     item_embedding_dim: int = 0        # > 0 enables the item MLP
     contextual_embedding_dim: int = 0  # > 0 enables the contextual MLP
     disable_contextual_mask: bool = False

@@ -2,7 +2,11 @@
 recsys_examples_tpu/modules/hstu_block.py).
 
 The layers run on the packed jagged layout: the JAX block's relayout into
-the Pallas kernel's block-aligned layout has no counterpart here.
+the Pallas kernel's block-aligned layout has no counterpart here. Under
+sequence parallelism the block pads the tokens to a multiple of TP and
+splits them over "model" before the first layer, and gathers them after the
+last one (its consumers are the same on every rank, so that gather's
+backward keeps this rank's block).
 """
 from __future__ import annotations
 
@@ -24,6 +28,10 @@ from recsys_examples_torch.ops.jagged import (
     interleave_jagged,
     lengths_to_offsets,
     split_2D_jagged,
+)
+from recsys_examples_torch.parallel.collective_ops import (
+    gather_along_first_dim,
+    split_along_first_dim,
 )
 
 
@@ -168,19 +176,28 @@ class HSTUBlockPostprocessor(nn.Module):
 class HSTUBlock(nn.Module):
     """Preprocessor -> num_layers x HSTULayer -> postprocessor."""
 
-    def __init__(self, config: HSTUConfig, device=None):
+    def __init__(self, config: HSTUConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
         self.preprocessor = HSTUBlockPreprocessor(config, device)
         self.layers = nn.ModuleList(
-            HSTULayer(config, device) for _ in range(config.num_layers))
+            HSTULayer(config, device, mesh) for _ in range(config.num_layers))
         self.postprocessor = HSTUBlockPostprocessor()
+        first = self.layers[0] if len(self.layers) else None
+        self.sp_group = first.tp_group if first is not None and first.sequence_parallel \
+            else None
 
     def forward(self, embeddings: Dict[str, torch.Tensor], batch: HSTUBatch,
                 train: bool = True, generator: Optional[torch.Generator] = None
                 ) -> JaggedData:
         cfg = self.config
         jd = self.preprocessor(embeddings, batch, train, generator)
+        T = jd.values.shape[0]
+        if self.sp_group is not None:
+            tp = cfg.tensor_model_parallel_size
+            x = jd.values
+            x = torch.cat([x, x.new_zeros(((-T) % tp, x.shape[1]))])
+            jd = jd.replace(values=split_along_first_dim(x, self.sp_group))
         remat = cfg.recompute_layer and train and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
@@ -189,6 +206,9 @@ class HSTUBlock(nn.Module):
                     use_reentrant=False))
             else:
                 jd = layer(jd, train, generator)
+        if self.sp_group is not None:
+            jd = jd.replace(values=gather_along_first_dim(
+                jd.values, self.sp_group, replicated_output=True)[:T])
         return self.postprocessor(jd)
 
 

@@ -3,7 +3,9 @@
 
 The accumulator states are plain tensors on the trainer's device; an update
 adds to them without waiting for the device, and `*_compute` reads nothing
-back either.
+back either. Under data parallelism each rank accumulates its rows and
+`sum_over` adds the ranks' states before `*_compute`: the states are sums
+(histogram counts, hits), so the metric does not depend on the world size.
 """
 from __future__ import annotations
 
@@ -11,6 +13,20 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
+
+
+def sum_over(state, group):
+    """`state` (an AUCState or RetrievalMetricState) with every field summed
+    over `group`; `state` itself without a group."""
+    if group is None:
+        return state
+    fields = {}
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name).clone()
+        dist.all_reduce(t, group=group)
+        fields[f.name] = t
+    return type(state)(**fields)
 
 
 @dataclasses.dataclass

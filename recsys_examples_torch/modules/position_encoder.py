@@ -141,21 +141,27 @@ class _Toeplitz(torch.autograd.Function):
 class RelativeAttentionBias(nn.Module):
     """Trainable relative attention bias: param `rel_bias` [num_buckets, H],
     normal(0.02). `forward(max_seqlen)` returns the dense fp32 bias
-    [1, H, N, N] with `[0, h, i, j] = rel_bias[bucket(i - j), h]`."""
+    [1, H, N, N] with `[0, h, i, j] = rel_bias[bucket(i - j), h]`.
+
+    With `tp` > 1 the param holds this rank's H/tp heads (columns
+    [tp_rank H/tp, (tp_rank + 1) H/tp)), and the bias is theirs."""
 
     def __init__(self, num_heads: int, num_buckets: int = 128, max_distance: int = 1024,
-                 causal: bool = True, device=None):
+                 causal: bool = True, device=None, tp: int = 1, tp_rank: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.num_buckets = num_buckets
         self.max_distance = max_distance
         self.causal = causal
-        self.rel_bias = nn.Parameter(torch.empty(num_buckets, num_heads, device=device))
+        self.tp, self.tp_rank = tp, tp_rank
+        self.rel_bias = nn.Parameter(torch.empty(num_buckets, num_heads // tp, device=device))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        self.rel_bias.copy_(0.02 * torch.randn(
-            self.rel_bias.shape, generator=generator, device=generator.device))
+        full = 0.02 * torch.randn((self.num_buckets, self.num_heads), generator=generator,
+                                  device=generator.device)
+        h = self.rel_bias.shape[1]
+        self.rel_bias.copy_(full[:, self.tp_rank * h:(self.tp_rank + 1) * h])
 
     def forward(self, max_seqlen: int) -> torch.Tensor:
         N = max_seqlen

@@ -1,25 +1,36 @@
 """HSTU ranking pretraining entry point (counterpart of
-recsys_examples_tpu/training/pretrain_gr_ranking.py): gin config ->
+recsys_examples_tpu/training/pretrain_gr_ranking.py): gin config -> mesh ->
 dataloader -> model -> trainer -> train loop with watchdog, MFU logging,
-periodic eval (AUC) and checkpointing, on one device.
+periodic eval (AUC) and checkpointing.
 
-Usage:
+Usage, on one device:
     python -m recsys_examples_torch.training.pretrain_gr_ranking \\
         --gin-config-file configs/ranking_random.gin \\
         [--max-train-iters N] [--device cuda|cpu]
+and on a mesh, one process per rank:
+    torchrun --nproc_per_node N -m recsys_examples_torch.training.pretrain_gr_ranking \\
+        --gin-config-file configs/ranking_dryrun_cpu.gin [--device cpu]
 
-`--device` defaults to CUDA and raises without a card. What needs several
-devices raises NotImplementedError naming the ROADMAP group that ports it:
-a tensor-parallel size above 1 and `sequence_parallel` (A5, distribution).
-With one device the data-parallel size is 1, so `balanced_shuffler` has
-nothing to balance.
+`--device` defaults to CUDA and raises without a card. Under `torchrun` (or
+with a process group that the caller started, `parallel.mesh.
+init_distributed`) the entry builds the (data, model) mesh with
+`TensorModelParallelArgs.tensor_model_parallel_size` ranks on "model" (a
+size that does not divide the world raises): the dynamic tables are
+row-sharded over "data", the HSTU layers split over "model" (with
+`sequence_parallel`, their tokens too). Every rank builds the same global
+batch of batch_size x dp samples from the same seed, balanced over the data
+ranks when `DatasetArgs.balanced_shuffler` is set and dp > 1, and trains on
+its data rank's contiguous block of samples (`shard_hstu_batch`). Without a
+process group the entry trains on one device and a tensor-parallel size
+above 1 raises.
 
 `DynamicEmbeddingArgs.caching` makes the item table a cache on the card over
 a host tier (`dynamicemb/hybrid_storage.py`; the action table stays
 uncached): each train batch's item ids are prefetched before its step,
-inside the step's timer. As in the JAX package, eval batches are not
-prefetched (their misses read the eval initializer) and a checkpoint holds
-the device tier only.
+inside the step's timer (under a mesh each rank prefetches the global
+batch's keys it owns into its shard, over its own host store). As in the
+JAX package, eval batches are not prefetched (their misses read the eval
+initializer) and a checkpoint holds the device tier only.
 """
 from __future__ import annotations
 
@@ -32,8 +43,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from recsys_examples_torch.data.hstu_batch import random_hstu_batch
+from recsys_examples_torch.data.batch_shuffler import shuffle_hstu_batch
+from recsys_examples_torch.data.hstu_batch import HSTUBatch, JaggedIds, random_hstu_batch
 from recsys_examples_torch.data.sequence_dataset import (
     PrefetchIterator,
     make_sequence_dataset,
@@ -45,7 +58,10 @@ from recsys_examples_torch.dynamicemb.dynamicemb_config import (
 )
 from recsys_examples_torch.dynamicemb.hybrid_storage import HybridDynamicEmbedding
 from recsys_examples_torch.dynamicemb.optimizer import SparseOptimizerArgs
-from recsys_examples_torch.dynamicemb.sharded_collection import ShardedDynamicEmbedding
+from recsys_examples_torch.dynamicemb.sharded_collection import (
+    AdaptiveBucketing,
+    ShardedDynamicEmbedding,
+)
 from recsys_examples_torch.models.ranking_gr import RankingGR
 from recsys_examples_torch.modules.config import (
     EmbeddingConfig,
@@ -54,7 +70,8 @@ from recsys_examples_torch.modules.config import (
     RankingConfig,
 )
 from recsys_examples_torch.modules.losses import decode_bits
-from recsys_examples_torch.modules.metrics import AUCState, auc_compute, auc_update
+from recsys_examples_torch.modules.metrics import AUCState, auc_compute, auc_update, sum_over
+from recsys_examples_torch.parallel.mesh import init_distributed, make_mesh
 from recsys_examples_torch.training import gin_args  # noqa: F401 (registers)
 from recsys_examples_torch.training.checkpoint import save_checkpoint
 from recsys_examples_torch.training.train_state import make_optimizer
@@ -69,14 +86,10 @@ KERNEL_BACKENDS = ("pallas", "jnp")
 
 
 def build_hstu_config(net, tp: int, sequence_parallel: bool = False) -> HSTUConfig:
-    if tp > 1 or sequence_parallel:
-        raise NotImplementedError(
-            f"tensor_model_parallel_size={tp}, sequence_parallel={sequence_parallel}: "
-            "tensor and sequence parallelism belong to the distribution slice "
-            "(ROADMAP group A5); the port trains on one device")
     if net.kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"kernel_backend {net.kernel_backend!r} not in {KERNEL_BACKENDS}")
     return HSTUConfig(
+        sequence_parallel=sequence_parallel and tp > 1,
         hidden_size=net.hidden_size,
         num_layers=net.num_layers,
         num_attention_heads=net.num_attention_heads,
@@ -91,14 +104,30 @@ def build_hstu_config(net, tp: int, sequence_parallel: bool = False) -> HSTUConf
         ),
         recompute_layer=net.recompute_layer,
         scaling_seqlen=net.scaling_seqlen,
+        tensor_model_parallel_size=tp,
     )
 
 
-def build_sparse_tables(ds, net, demb, device) -> dict:
+def build_mesh(device: torch.device, tp: int):
+    """(device, mesh): under `torchrun` or a process group the caller
+    started, this rank's device and the (data, model) mesh with `tp` ranks
+    on "model"; on one device (device, None), where tp > 1 raises."""
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        if tp > 1:
+            raise ValueError(f"tensor_model_parallel_size {tp} does not divide the world "
+                             "size 1 (start one process per rank, e.g. with torchrun)")
+        return device, None
+    device = init_distributed(device)
+    return device, make_mesh(-1, tp, device)
+
+
+def build_sparse_tables(ds, net, demb, device, mesh=None) -> dict:
     """feature -> ShardedDynamicEmbedding: the item table, and an action
-    table when the dataset has actions; {} with static tables."""
+    table when the dataset has actions; {} with static tables. Under a mesh
+    they are row-sharded over its data axis."""
     if not demb.use_dynamic_embedding:
         return {}
+    dp = 1 if mesh is None else mesh.size(mesh.data_axis)
     opt = SparseOptimizerArgs(optimizer=demb.optimizer, learning_rate=demb.learning_rate,
                               weight_decay=demb.weight_decay)
     sparse = {"item": ShardedDynamicEmbedding(DynamicEmbeddingTable(
@@ -108,23 +137,23 @@ def build_sparse_tables(ds, net, demb, device) -> dict:
             bucket_capacity=demb.bucket_capacity,
             score_strategy=DynamicEmbScoreStrategy(demb.score_strategy),
             admission_threshold=demb.admission_threshold,
-        ), opt), mesh=None, device=device)}
+        ), opt, world_size=dp), mesh=mesh, device=device)}
     if ds.action_vocab_size > 0:
         sparse["action"] = ShardedDynamicEmbedding(DynamicEmbeddingTable(
             DynamicEmbTableOptions(
                 embedding_dim=net.hidden_size,
                 max_capacity=1 << 12,
                 bucket_capacity=demb.bucket_capacity,
-            ), opt), mesh=None, device=device)
+            ), opt, world_size=dp), mesh=mesh, device=device)
     return sparse
 
 
-def build_cache(demb, sparse, device):
+def build_cache(demb, sparse, device, mesh=None):
     """The item table's host tier and prefetch (`DynamicEmbeddingArgs.caching`
     with dynamic tables), or None."""
     if not (demb.use_dynamic_embedding and demb.caching):
         return None
-    return HybridDynamicEmbedding(sparse["item"].table, device=device)
+    return HybridDynamicEmbedding(sparse["item"].table, mesh=mesh, device=device)
 
 
 def static_tables(ds, net, demb):
@@ -156,6 +185,68 @@ def batch_iterator(ds, trainer_args, dp: int = 1):
             ds.batch_size * dp, train=True, seed=trainer_args.seed,
             shuffle=ds.shuffle,
         )
+
+
+def _block(n: int, parts: int, i: int):
+    """[start, end) of part i of n items split into `parts` contiguous blocks
+    (the first n % parts blocks one longer)."""
+    q, r = divmod(n, parts)
+    start = i * q + min(i, r)
+    return start, start + q + (i < r)
+
+
+def _slice_jagged(values, offsets, b0, b1, cap):
+    """Samples [b0, b1) of a jagged buffer, repacked from 0 and padded with
+    zeros to `cap` rows."""
+    offsets = np.asarray(offsets)
+    lo, hi = int(offsets[b0]), int(offsets[b1])
+    values = np.asarray(values)
+    out = np.zeros((cap,) + values.shape[1:], values.dtype)
+    out[:hi - lo] = values[lo:hi]
+    return out, (offsets[b0:b1 + 1] - lo).astype(offsets.dtype)
+
+
+def shard_hstu_batch(batch: HSTUBatch, dp: int, rank: int) -> HSTUBatch:
+    """Data rank `rank`'s contiguous block of the batch's samples: what the
+    JAX package's P("data") on the leading dim means. Each jagged buffer keeps
+    its share of the global buffer's padding rows (rank r takes padding // dp,
+    plus one while r < padding % dp), so padding keys reach the tables iff
+    they do in the global batch. Candidate labels are b-major strided; other
+    labels follow the item feature's tokens."""
+    if dp == 1:
+        return batch
+    b0, b1 = _block(batch.batch_size, dp, rank)
+
+    def cap(capacity, lengths):
+        """This block's rows and its share of the padding rows."""
+        lengths = np.asarray(lengths)
+        lo, hi = _block(capacity - int(lengths.sum()), dp, rank)
+        return int(lengths[b0:b1].sum()) + hi - lo
+
+    feats = {}
+    for name, f in batch.features.items():
+        c = cap(f.capacity, f.lengths)
+        vals, offs = _slice_jagged(f.values, f.offsets, b0, b1, c)
+        feats[name] = JaggedIds(values=vals, lengths=np.asarray(f.lengths)[b0:b1],
+                                offsets=offs, max_len=f.max_len)
+    item = batch.features[batch.item_feature_name]
+    kw = {}
+    if batch.num_candidates is not None:
+        kw["num_candidates"] = np.asarray(batch.num_candidates)[b0:b1]
+    if batch.labels is not None:
+        lab = np.asarray(batch.labels)
+        kw["label_lengths"] = np.asarray(batch.label_lengths)[b0:b1]
+        if batch.max_num_candidates > 0:
+            per = lab.shape[0] // batch.batch_size
+            kw["labels"] = lab[b0 * per:b1 * per]
+        else:
+            loffs = np.concatenate([[0], np.cumsum(batch.label_lengths)])
+            kw["labels"] = _slice_jagged(lab, loffs, b0, b1,
+                                         cap(lab.shape[0], batch.label_lengths))[0]
+    if batch.timestamps is not None:
+        kw["timestamps"] = _slice_jagged(batch.timestamps, item.offsets, b0, b1,
+                                         feats[batch.item_feature_name].capacity)[0]
+    return dataclasses.replace(batch, features=feats, batch_size=b1 - b0, **kw)
 
 
 def read_args(argv, entry: str):
@@ -247,28 +338,43 @@ class StepProfiler:
             self.last, self.prof = self.prof, None
 
 
+def data_rank(mesh):
+    """(dp, this rank's data index) of `mesh`, (1, 0) without one."""
+    if mesh is None:
+        return 1, 0
+    return mesh.size(mesh.data_axis), mesh.index(mesh.data_axis)
+
+
 def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str, cache=None):
     """The training loop both entries share: returns (state, the profile of
     the `TrainerArgs.profile` window or None).
 
     The batch stream is assembled on a worker thread. The JAX entries
     initialise their params on the first batch and train from the second;
-    this loop draws the first batch too, so both train on one stream. Each
-    step waits for the device once (`StepTimer`); `evaluate(state)` runs at
-    every `eval_interval` and at the end. `cache` (a HybridDynamicEmbedding
-    over the item table) prefetches each train batch's item ids inside the
-    step's timer."""
+    this loop draws the first batch too, so both train on one stream. Under
+    a mesh the stream yields global batches (balanced over the data ranks
+    with `balanced_shuffler`) and each rank steps on its data rank's block.
+    Each step waits for the device once (`StepTimer`); `evaluate(state)`
+    runs at every `eval_interval` and at the end. `cache` (a
+    HybridDynamicEmbedding over the item table) prefetches each train
+    batch's item ids inside the step's timer."""
     device = trainer.device
-    it = PrefetchIterator(batch_iterator(ds, trainer_args),
-                          depth=int(os.environ.get("REXTPU_PREFETCH_DEPTH", "2")))
+    dp, drank = data_rank(trainer.mesh)
+    stream = batch_iterator(ds, trainer_args, dp)
+    if ds.balanced_shuffler and dp > 1:
+        stream = (shuffle_hstu_batch(b, dp) for b in stream)
+    it = PrefetchIterator(stream, depth=int(os.environ.get("REXTPU_PREFETCH_DEPTH", "2")))
     profiler = StepProfiler(trainer_args, device)
+    bucketing = AdaptiveBucketing(trainer.sparse_tables.values()) \
+        if trainer.sparse_tables and trainer.mesh is not None else None
     try:
         next(it)
         state = trainer.init(torch.Generator(device=device).manual_seed(trainer_args.seed))
-        dropout_gen = torch.Generator(device=device).manual_seed(trainer_args.seed)
+        dropout_gen = torch.Generator(device=device).manual_seed(trainer_args.seed + drank)
         peak = device_peak_tflops(device)
         timer = StepTimer(device=device)
-        print_rank_0(f"start {what}: {trainer_args.max_train_iters} iters, device={device}")
+        print_rank_0(f"start {what}: {trainer_args.max_train_iters} iters, device={device}"
+                     + ("" if trainer.mesh is None else f", mesh {trainer.mesh.shape}"))
         losses = []
         nan_reported = False
         t_start = time.perf_counter()
@@ -279,7 +385,8 @@ def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str, cache=
             timer.start()
             if cache is not None:
                 cache.prefetch(state.sparse["item"], np.asarray(batch.features["item"].values))
-            state, metrics = trainer.train_step(state, batch, dropout_gen)
+            state, metrics = trainer.train_step(state, shard_hstu_batch(batch, dp, drank),
+                                                dropout_gen)
             dt = timer.stop()
             loss = float(metrics["loss"])
             losses.append(loss)
@@ -288,6 +395,8 @@ def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str, cache=
                 print_rank_0(
                     f"[a2a-overflow] iter {i + 1}: {ovf} unique ids past their owner "
                     "bucket cap (trained on transient init this step)")
+            if bucketing is not None:
+                bucketing.observe(ovf)
             if loss != loss and not nan_reported:
                 nan_reported = True
                 nan_tripwire(i, state, batch)
@@ -297,7 +406,7 @@ def train(trainer: GRTrainer, ds, net, trainer_args, evaluate, what: str, cache=
             if (trainer_args.ckpt_save_interval
                     and (i + 1) % trainer_args.ckpt_save_interval == 0):
                 save_checkpoint(f"{trainer_args.ckpt_dir}/iter_{i + 1:07d}", state,
-                                state.sparse)
+                                state.sparse, trainer.mesh)
             if trainer_args.eval_interval and (i + 1) % trainer_args.eval_interval == 0:
                 evaluate(state)
     finally:
@@ -324,6 +433,7 @@ def main(argv=None):
     tpa = gin_config.make("TensorModelParallelArgs")
     rank_args = gin_config.make("RankingArgs")
 
+    device, mesh = build_mesh(device, tpa.tensor_model_parallel_size)
     hstu_cfg = build_hstu_config(net, tpa.tensor_model_parallel_size,
                                  sequence_parallel=tpa.sequence_parallel)
     task_cfg = RankingConfig(
@@ -333,14 +443,14 @@ def main(argv=None):
         prediction_head_bias=rank_args.prediction_head_bias,
         num_tasks=rank_args.num_tasks,
     )
-    sparse = build_sparse_tables(ds, net, demb, device)
+    sparse = build_sparse_tables(ds, net, demb, device, mesh)
     trainer = GRTrainer(
-        RankingGR(hstu_cfg, task_cfg, device=device),
+        RankingGR(hstu_cfg, task_cfg, device=device, mesh=mesh),
         make_optimizer(opt.learning_rate, opt.optimizer_str, opt.adam_beta1,
                        opt.adam_beta2, opt.adam_eps, opt.weight_decay),
-        sparse, device=device,
+        sparse, device=device, mesh=mesh,
     )
-    LAST_CACHE = build_cache(demb, sparse, device)
+    LAST_CACHE = build_cache(demb, sparse, device, mesh)
     state, LAST_PROFILE = train(
         trainer, ds, net, trainer_args,
         lambda st: run_eval(trainer, st, ds, trainer_args, rank_args,
@@ -378,15 +488,18 @@ def eval_batches(ds, trainer_args, iters):
 
 def run_eval(trainer: GRTrainer, state: GRTrainState, ds, trainer_args, rank_args,
              iters=8):
+    """AUC over the eval batches (each data rank evaluates its block of each;
+    the histograms are summed over the data axis)."""
     num_tasks = rank_args.num_tasks
     auc = AUCState.init(num_tasks, device=trainer.device)
+    dp, drank = data_rank(trainer.mesh)
     nb = 0
     for batch in eval_batches(ds, trainer_args, iters):
-        _, aux = trainer.eval_step(state, batch)
+        _, aux = trainer.eval_step(state, shard_hstu_batch(batch, dp, drank))
         labels01 = decode_bits(aux["labels"], num_tasks)
         auc = auc_update(auc, aux["logits"], labels01, aux["valid"])
         nb += 1
-    vals = auc_compute(auc).cpu().numpy()
+    vals = auc_compute(sum_over(auc, trainer.data_group)).cpu().numpy()
     global LAST_EVAL_AUC
     LAST_EVAL_AUC = vals
     EVAL_AUC_HISTORY.append(vals)
@@ -396,3 +509,5 @@ def run_eval(trainer: GRTrainer, state: GRTrainState, ds, trainer_args, rank_arg
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -1,18 +1,21 @@
 """HSTU retrieval pretraining entry point (counterpart of
 recsys_examples_tpu/training/pretrain_gr_retrieval.py): HSTU encoder +
 in-batch-negative sampled softmax; eval = HR@k / NDCG@k / MRR of the held-out
-next item ranked against the batch's target embeddings. One device.
+next item ranked against the batch's target embeddings.
 
 Usage:
     python -m recsys_examples_torch.training.pretrain_gr_retrieval \\
         --gin-config-file configs/retrieval_movielens_1m.gin \\
         [--max-train-iters N] [--device cuda|cpu]
 
-`--device` defaults to CUDA and raises without a card; the mesh options
-raise as in `pretrain_gr_ranking`, whose training loop (checkpoints
-included) this entry shares. As in the JAX package, this entry has no
-embedding cache: `DynamicEmbeddingArgs.caching` leaves its tables as they
-are.
+`--device` defaults to CUDA and raises without a card. The mesh, the
+batch sharding and the training loop (checkpoints included) are
+`pretrain_gr_ranking`'s, also under `torchrun`. Under data parallelism the
+in-batch negatives of the loss are the global batch's targets, gathered over
+the data axis, and every data rank evaluates whole eval batches (see
+`run_eval`). As in the JAX package, this
+entry has no embedding cache: `DynamicEmbeddingArgs.caching` leaves its
+tables as they are.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from recsys_examples_torch.modules.metrics import (
 from recsys_examples_torch.training import gin_args  # noqa: F401 (registers)
 from recsys_examples_torch.training.pretrain_gr_ranking import (
     build_hstu_config,
+    build_mesh,
     build_sparse_tables,
     read_args,
     static_tables,
@@ -63,6 +67,7 @@ def main(argv=None):
     tpa = gin_config.make("TensorModelParallelArgs")
     ret_args = gin_config.make("RetrievalArgs")
 
+    device, mesh = build_mesh(device, tpa.tensor_model_parallel_size)
     hstu_cfg = build_hstu_config(net, tpa.tensor_model_parallel_size,
                                  sequence_parallel=tpa.sequence_parallel)
     task_cfg = RetrievalConfig(
@@ -72,10 +77,10 @@ def main(argv=None):
         eval_metrics=tuple(ret_args.eval_metrics),
     )
     trainer = GRTrainer(
-        RetrievalGR(hstu_cfg, task_cfg, device=device),
+        RetrievalGR(hstu_cfg, task_cfg, device=device, mesh=mesh),
         make_optimizer(opt.learning_rate, opt.optimizer_str, opt.adam_beta1,
                        opt.adam_beta2, opt.adam_eps, opt.weight_decay),
-        build_sparse_tables(ds, net, demb, device), device=device,
+        build_sparse_tables(ds, net, demb, device, mesh), device=device, mesh=mesh,
     )
     state, LAST_PROFILE = train(
         trainer, ds, net, trainer_args,
@@ -110,7 +115,14 @@ def _eval_batches(ds, trainer_args, iters):
 
 def run_eval(trainer: GRTrainer, state: GRTrainState, ds, trainer_args, ret_args,
              iters=8):
-    """Rank the true next item among the batch's target embeddings."""
+    """Rank the true next item among the batch's target embeddings.
+
+    As in the JAX entry, a row is ranked against the targets of every row
+    of the eval batch, valid or not: in the packed batch a sequence's last
+    row points at the next sample's first item. A data rank's block of
+    samples has other targets at its edges, so under data parallelism every
+    rank evaluates the whole eval batch (the tables serve its keys through
+    the exchange) and holds the global metric state."""
     ks = _parse_ks(ret_args.eval_metrics)
     mstate = RetrievalMetricState.init(len(ks), device=trainer.device)
     for batch in _eval_batches(ds, trainer_args, iters):
@@ -133,3 +145,5 @@ def run_eval(trainer: GRTrainer, state: GRTrainState, ds, trainer_args, ret_args
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -247,12 +247,6 @@ def test_table_steps_match_jax(steps_jax, strategy, optimizer):
     _assert_same(hyb, state, jhyb, jstate, trained=True)
 
 
-def test_mesh_raises():
-    t, _ = _tables(16, 8)
-    with pytest.raises(NotImplementedError, match="A5"):
-        ths.HybridDynamicEmbedding(t, mesh=object(), device="cpu")
-
-
 def test_tiered_host_tier_gives_the_same_table(tmp_path):
     """The cache over a RAM tier of 8 rows and an SSD arena gives the table
     the plain host tier gives: the rows come back through spill and promote

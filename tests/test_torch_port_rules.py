@@ -19,6 +19,8 @@ ENTRY_SLICE = (
     "dynamicemb/hybrid_storage.py", "dynamicemb/tiered_storage.py", "dynamicemb/planner.py",
     "dynamicemb/pooled.py", "dynamicemb/exportable_tables.py",
     "dynamicemb/sharded_collection.py", "inference/kvcache.py", "ops/head_dims.py",
+    "parallel/mesh.py", "parallel/collective_ops.py", "training/trainer.py",
+    "modules/hstu_layer.py", "models/ranking_gr.py", "convert.py",
 )
 
 
@@ -131,9 +133,9 @@ def test_train_entry_points_default_to_cuda():
 
 
 def test_dynamic_tables_default_to_cuda_and_refuse_a_mesh():
-    """The dynamic tables live on the card unless the caller says "cpu"; row
-    sharding over a mesh belongs to the distribution slice; a trainer and its
-    tables share one device."""
+    """The dynamic tables live on the card unless the caller says "cpu"; a
+    trainer and its tables share one device. (Row sharding over a mesh is
+    held in tests/test_torch_sharded_dynamicemb.py.)"""
     from recsys_examples_torch.dynamicemb.batched_table import DynamicEmbeddingTable
     from recsys_examples_torch.dynamicemb.dynamicemb_config import DynamicEmbTableOptions
     from recsys_examples_torch.dynamicemb.hashtable import create_table_state
@@ -148,9 +150,6 @@ def test_dynamic_tables_default_to_cuda_and_refuse_a_mesh():
     table = DynamicEmbeddingTable(
         DynamicEmbTableOptions(embedding_dim=8, max_capacity=64, bucket_capacity=8),
         SparseOptimizerArgs(optimizer="sgd"))
-    for mesh in (object(), "dp"):
-        with pytest.raises(NotImplementedError, match="distribution slice"):
-            ShardedDynamicEmbedding(table, mesh=mesh, device="cpu")
     on_cpu = ShardedDynamicEmbedding(table, mesh=None, device="cpu")
     state = on_cpu.init_state()
     assert state.table.keys.device.type == state.step.device.type == "cpu"

@@ -253,19 +253,6 @@ def test_retrieval_ignores_caching_as_jax(tmp_path):
     assert int(state.sparse["item"].table.inserted[0]) > 0
 
 
-@pytest.mark.parametrize("gin,match", [
-    ('TensorModelParallelArgs.tensor_model_parallel_size = 2', "A5"),
-    ('TensorModelParallelArgs.sequence_parallel = True', "A5"),
-])
-@pytest.mark.parametrize("entry", [t_rank, t_ret], ids=["ranking", "retrieval"])
-def test_unported_options_raise(tmp_path, entry, gin, match):
-    cfg = tmp_path / "x.gin"
-    cfg.write_text("\n".join(RANKING + [gin]))
-    tgin.clear_config()
-    with pytest.raises(NotImplementedError, match=match):
-        entry.main(["--gin-config-file", str(cfg), "--device", "cpu"])
-
-
 def test_unknown_kernel_backend_raises(tmp_path):
     cfg = tmp_path / "x.gin"
     cfg.write_text("\n".join(RANKING + ['NetworkArgs.kernel_backend = "triton"']))

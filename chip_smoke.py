@@ -3,8 +3,9 @@
 each against its plain PyTorch version, run KV-cached HSTU ranking serving,
 the HSTU ranking train step (static tables; dynamic tables; dynamic tables
 and the relative attention bias), SID-GR beam-search serving, the two int8
-kernel modes and the gin-driven ranking and retrieval training entries at
-full width through them, and print one JSON summary.
+kernel modes, the gin-driven ranking and retrieval training entries, the
+ranking export with its C++ replay, and SID-GR's stepwise serving and
+training entry at full width through them, and print one JSON summary.
 
 Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
@@ -186,6 +187,35 @@ Phases (any failure exits non-zero):
              their plain versions at the first attention call; (c) K1-K3
              against their plain versions at a TP 2 rank's full-width shape,
              2 x 256 heads, on the first data half of that call's lengths.
+ 19. export  the ranking export at phase 3's widths (B 8, max_new 128,
+             max_cached 2048): (a) `export_ranking_dense`, then
+             `ExportedRankingDense`: its logits against the eager gather path
+             within phase 3's tolerance (the paged K6 path's for the record);
+             (b) the AOTInductor package: its build seconds, load, and call
+             against (a), timed beside the eager gather path; (c) the C++
+             runner `csrc/aoti_replay.cpp`: built against torch, a
+             dry run that reads the spec's every input, and a real run on
+             the same inputs whose logits' sum and max match (b)'s.
+ 20. sid     SID-GR's stepwise serving, HTTP front and training entry at
+             phase 11's widths: (a) `ContinuousGRScheduler` at
+             `ServingConfig()` (beam 64, ctx buckets 64/256/1024, batch
+             buckets 1/4/8) over a wave of 32 requests in all three buckets,
+             steps_per_dispatch 1 and 2: K7 against its plain version at the
+             path's first call, K7's launches per tick, each request against
+             `GRServingEngine.generate` on its context (rank-wise scores
+             within 0.1, no beam clear of its neighbours differing) and a
+             faulted control (K7 with sm_scale x 1.1) that this must catch;
+             then a scheduled width policy, the score margin, and the trie
+             constraint with the margin; ticks, req/s, median and p99 ms,
+             the pools' high-water marks, one profiled decode tick; (b)
+             /generate over HTTP for 8 requests when aiohttp imports (the
+             line says whether it did); (c) `pretrain_sid_gr.main` on
+             configs/sid_gr_random.gin as shipped, at (a)'s model widths
+             (beam 200, 10 steps, one eval batch) and on sid_gr_file.gin over
+             a synthetic interaction log through `preprocess_interactions`
+             and `build_rq_sid_mapping`: step ms, eval metrics, K7's launches
+             ((H - 1) x L per eval batch) and K7 against its plain version at
+             each eval's first call.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -3388,6 +3418,457 @@ def phase_mesh(ranking):
     return res
 
 
+# ---------------------------------------------------------------- phase 19
+def phase_export():
+    """Phase 19: the ranking export at phase 3's full width. (a) the
+    `torch.export` program of the gather path against the eager gather path
+    (and, for the record, the paged K6 path); (b) the AOTInductor package:
+    its build seconds, load, and call against (a), timed beside the eager
+    gather path; (c) the C++ runner: build, dry run, and a real run whose
+    logits' sum and max match (b) at the same inputs."""
+    import shutil
+    import tempfile
+
+    from recsys_examples_torch.dynamicemb.exportable_tables import inference_lookup
+    from recsys_examples_torch.inference import export as ex
+    from recsys_examples_torch.inference.inference_ranking_gr import (
+        InferenceDenseModule, InferenceRankingGR)
+    from recsys_examples_torch.inference.kvcache import (
+        KVCacheConfig, gather_kvcache, lookup_kvcache)
+    from recsys_examples_torch.modules.config import HSTUConfig
+
+    cfg = HSTUConfig()
+    B, hist, cand, chunk = 8, 2048, 128, 512
+    maxp = (hist + cand + 127) // 128 + 1
+    kv_cfg = KVCacheConfig(
+        num_layers=cfg.num_layers, num_heads=cfg.num_attention_heads,
+        head_dim=cfg.kv_channels, page_size=128, num_pages=B * maxp * 2,
+        max_users=B * 4, max_pages_per_user=maxp, dtype=cfg.dtype)
+    table, _ = build_table(512, 128, cfg.hidden_size, 32768, SEED + 1)
+    dense = InferenceDenseModule(cfg, (512, 1)).init_weights(torch.Generator().manual_seed(SEED))
+    runner = InferenceRankingGR(cfg, kv_cfg, dense, table, device="cuda")
+    runner.init_cache()
+    rng = np.random.default_rng(SEED + 19)
+    users = np.arange(1, B + 1, dtype=np.int64)
+    seq = rng.integers(1, 32768, size=(B, hist + cand)).astype(np.int64)
+    for lo in range(0, hist, chunk):       # the history into the cache
+        runner.forward_with_kvcache(users, seq, np.full((B,), lo + chunk, np.int32), None, chunk)
+    kv = runner.kv_state
+    slots, cached = lookup_kvcache(kv, torch.from_numpy(users).cuda())
+    ck, cv, clen = gather_kvcache(kv, kv_cfg, slots, hist)
+    clen = torch.minimum(clen, cached).to(torch.int32)
+    emb = inference_lookup(table, torch.from_numpy(seq[:, hist:]).cuda().reshape(-1))
+    emb = emb.reshape(B, cand, -1).to(cfg.dtype)
+    nl = torch.full((B,), cand, dtype=torch.int32, device="cuda")
+    nc = nl.clone()
+    scaling = kv_cfg.max_cached_len
+    inputs = (emb, ck, cv, clen, nl, nc)
+    if clen.tolist() != [hist] * B:
+        raise SystemExit(f"phase19: cached lengths {clen.tolist()}, expected {hist}")
+    eager = lambda: runner.module(*inputs, scaling)
+    with torch.no_grad():
+        ref = eager()[0].float()
+        page_table = kv.user_pages[slots]
+        paged = runner.module(emb, None, None, clen, nl, nc, scaling,
+                              paged=(kv.k_pages, kv.v_pages, page_table.contiguous()))[0].float()
+    scale = ref.abs().max().item()
+    tol = 2e-2 * scale + 1e-3
+    log(f"phase19 config: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads}x{cfg.kv_channels}, bf16; B {B}, max_new {cand}, "
+        f"max_cached {hist}; the paged K6 path against the eager gather path (for the "
+        f"record): max_abs_err={(paged - ref).abs().max().item():.4e} max|ref|={scale:.4e}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    entry_log = EntryLog()
+    try:
+        t0 = time.perf_counter()
+        ex.export_ranking_dense(runner, B, cand, hist, tmp)
+        export_s = time.perf_counter() - t0
+        aoti_s = [float(m[1]) for m in (re.search(r"AOTInductor package .* built in (\S+) s", ln)
+                                        for ln in entry_log.lines) if m]
+        loaded = ex.ExportedRankingDense(tmp)
+        got = loaded(*inputs)[0].float()
+        err = (got - ref).abs().max().item()
+        log(f"phase19a export_ranking_dense {export_s:.1f} s in all (torch.export, the "
+            f"artifacts and the AOTInductor build of {aoti_s} s); {len(loaded.params)} "
+            f"param inputs; the loaded program against the eager gather path: "
+            f"max_abs_err={err:.4e} tol={tol:.4e} (2e-2*max|ref|+1e-3)")
+        if not (within(err, scale) and torch.isfinite(got).all()):
+            raise SystemExit("phase19a: the exported program disagrees with the eager path")
+        if len(aoti_s) != 1:
+            raise SystemExit("phase19b: the export built no AOTInductor package on the card")
+
+        t0 = time.perf_counter()
+        pkg = torch._inductor.aoti_load_package(os.path.join(tmp, ex.AOTI_PACKAGE))
+        load_s = time.perf_counter() - t0
+        aoti = lambda: pkg(*loaded.params, *inputs)
+        with torch.no_grad():
+            out = aoti()
+            a_logits = out[0].float()
+        a_err = (a_logits - got).abs().max().item()
+        with torch.no_grad():
+            aoti_ms = median_time_ms(aoti, 10)
+            eager_ms = median_time_ms(eager, 10)
+        log(f"phase19b AOTInductor package: built in {aoti_s[0]:.1f} s, loaded in "
+            f"{load_s:.2f} s; its logits against 19a: max_abs_err={a_err:.4e} tol={tol:.4e}; "
+            f"aoti_ms={aoti_ms:.3f} eager_gather_ms={eager_ms:.3f} (CUDA events, median of "
+            f"3 x 10 calls)")
+        if not (within(a_err, scale) and torch.isfinite(a_logits).all()):
+            raise SystemExit("phase19b: the AOTInductor package disagrees with the program")
+
+        t0 = time.perf_counter()
+        binary = ex.build_aoti_replay()
+        build_s = time.perf_counter() - t0
+        spec = os.path.join(tmp, "replay_spec.txt")
+        n_spec = sum(1 for ln in open(spec) if ln.startswith("input "))
+        dry = subprocess.run([str(binary), "--spec", spec, "--dry-run"], capture_output=True,
+                             text=True, timeout=120)
+        dry_out = json.loads(dry.stdout.strip().splitlines()[-1]) if dry.returncode == 0 else {}
+        log(f"phase19c aoti_replay built in {build_s:.1f} s ({binary.name}); dry run "
+            f"{dry.stdout.strip()} (spec lists {n_spec} inputs) {dry.stderr.strip()[-300:]}")
+        if dry_out.get("inputs") != n_spec or n_spec != len(loaded.params) + 6:
+            raise SystemExit("phase19c: the C++ dry run does not read the spec's inputs")
+        args = [t.detach().cpu() for t in (*loaded.params, *inputs)]
+        ex.write_replay_artifacts(tmp, args, values=args, data="full_inputs.bin",
+                                  spec="full_spec.txt")
+        run = subprocess.run([str(binary), "--package", os.path.join(tmp, ex.AOTI_PACKAGE),
+                              "--spec", os.path.join(tmp, "full_spec.txt")],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise SystemExit(f"phase19c: aoti_replay failed: {run.stderr[-2000:]}")
+        cpp = json.loads(run.stdout.strip().splitlines()[-1])
+        py = a_logits.double()
+        sum_err = abs(cpp["logits_sum"] - py.sum().item())
+        max_err = abs(cpp["logits_max"] - py.max().item())
+        sum_tol = 1e-3 * py.abs().sum().item()
+        log(f"phase19c C++ run: outputs {cpp['outputs']} logits_sum={cpp['logits_sum']:.6f} "
+            f"(python {py.sum().item():.6f}, |diff| {sum_err:.3e}, tol {sum_tol:.3e}: 1e-3 x "
+            f"sum|logits|) logits_max={cpp['logits_max']:.6f} (python {py.max().item():.6f}, "
+            f"|diff| {max_err:.3e}, tol {tol:.3e}) on {cpp['device']} (the package's "
+            f"device) median_ms={cpp['median_ms']:.3f} (host "
+            f"clock, each call synchronised)")
+        if (sum_err > sum_tol or max_err > tol or cpp["outputs"][0] != [B, cand, 1]
+                or cpp["device"] != "cuda"):
+            raise SystemExit("phase19c: the C++ replay's logits disagree with the package's")
+    finally:
+        entry_log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del runner, loaded, pkg
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, aoti_s=aoti_s[0], aoti_ms=aoti_ms, eager_ms=eager_ms,
+                cpp_ms=cpp["median_ms"], err=err)
+
+
+# ---------------------------------------------------------------- phase 20
+class FirstBeamCall:
+    """While active, keeps the inputs of the first beam-decode attention call
+    that the decoder makes (`modules.transformer`'s `beam_decode_attn`).
+    Adds no launch."""
+
+    def __enter__(self):
+        from recsys_examples_torch.modules import transformer
+
+        self.module, self.orig, self.args = transformer, transformer.beam_decode_attn, None
+
+        def spy(*a, sm_scale, backend):
+            if self.args is None:
+                self.args = (a, sm_scale)
+            return self.orig(*a, sm_scale=sm_scale, backend=backend)
+
+        transformer.beam_decode_attn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.beam_decode_attn = self.orig
+
+    def check(self, tag):
+        """K7 on the recorded inputs against its plain version (BEAM_LIMITS,
+        row by row), launched twice, equal bit for bit."""
+        from recsys_examples_torch.ops import beam_decode_attention as bda
+
+        if self.args is None:
+            raise SystemExit(f"{tag}: no beam-decode attention call was recorded")
+        a, scale = self.args
+        got = bda.beam_decode_attn(*a, sm_scale=scale)
+        want = bda.beam_decode_attn_ref(*a, sm_scale=scale)
+        err, worst, rel, ok = beam_errors(got, want)
+        same = torch.equal(got, bda.beam_decode_attn(*a, sm_scale=scale))
+        q, k_ctx = a[0], a[1]
+        N = 0 if a[4] is None else a[4].shape[1]
+        log(f"{tag} K7 at the path's first call: q={tuple(q.shape)} S={k_ctx.shape[1]} N={N} "
+            f"ctx_lens {int(a[3].min())}..{int(a[3].max())} max_abs_err={err:.3e} worst row at "
+            f"{worst:.3f} of its tol, worst row rel L2 {rel:.3e} repeat equal {same}")
+        if not (ok and same):
+            raise SystemExit(f"{tag}: K7 disagrees with its plain version at the path's shape")
+        return err
+
+
+SERVE_LIMITS = {"scores": 1e-1}     # rank-wise final scores, as phase 11's
+
+
+def sid_context(rng, lo, hi, H=4):
+    n = int(rng.integers(lo, hi))
+    n -= n % H
+    return rng.integers(0, 256, size=(max(n, H),)).astype(np.int32)
+
+
+def phase_continuous(model):
+    """Phase 20a: `ContinuousGRScheduler` at `ServingConfig()`'s defaults over
+    a mixed wave of 32 requests in all three context buckets."""
+    from recsys_examples_torch.inference.sid_serving import logits_processor as lp
+    from recsys_examples_torch.inference.sid_serving.continuous import ContinuousGRScheduler
+    from recsys_examples_torch.inference.sid_serving.engine import (
+        GRServingEngine, ServingConfig)
+    from recsys_examples_torch.inference.sid_serving.item_constraints import TrieConstraint
+    from recsys_examples_torch.inference.sid_serving.scheduler import BeamPolicy
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+
+    cfg = ServingConfig()
+    H = model.config.num_hierarchies
+    rng = np.random.default_rng(SEED + 20)
+    spans = [(4, 64), (68, 256), (260, 1024)]
+    wave = [sid_context(rng, *spans[i % 3]) for i in range(32)]
+    eng = GRServingEngine(model, cfg)
+
+    def drive(label, policy=None, k=2, processor=None, top_k=cfg.beam_width, profile=False):
+        sched = ContinuousGRScheduler(model, cfg, max_batch=8, beam_policy=policy,
+                                      steps_per_dispatch=k, logits_processor=processor)
+        per_tick, ticks = [], 0
+        beam_decode_attn.launches = 0
+        t0 = time.perf_counter()
+        rids = [sched.submit(c, top_k=top_k) for c in wave]
+        while sched.queue or sched.inflight:
+            before = beam_decode_attn.launches
+            sched.tick()
+            ticks += 1
+            per_tick.append(beam_decode_attn.launches - before)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = [sched.get_result(r) for r in rids]
+        st = sched.status()
+        lat = np.asarray([r["latency_ms"] for r in res])
+        log(f"phase20a {label}: steps_per_dispatch {k}, widths {sched.widths}: {ticks} ticks, "
+            f"{32 / wall:.2f} req/s, latency median {np.median(lat):.1f} ms p99 "
+            f"{np.percentile(lat, 99):.1f} ms, dispatches {int(st['dispatches'])}, step "
+            f"functions {st['compiled']}, pool high water {st['pool_high_water']}, K7 "
+            f"launches {sum(per_tick)} (per tick {per_tick})")
+        if any(r is None or "error" in r or not r["sids"] for r in res) or \
+                st["completed"] != 32 or any(st["pool_leaks"].values()):
+            raise SystemExit(f"phase20a {label}: a request was not answered, or a lease leaked")
+        for r in res:
+            p, s = np.asarray(r["sids"]), np.asarray(r["scores"])
+            if p.min() < 0 or p.max() >= 256 or not np.isfinite(s).all() or \
+                    (np.diff(s) > 0).any():
+                raise SystemExit(f"phase20a {label}: bad paths or scores")
+        if profile:
+            sched2 = ContinuousGRScheduler(model, cfg, max_batch=8, steps_per_dispatch=k)
+            for c in wave[:8]:
+                sched2.submit(c, top_k=top_k)
+            sched2.tick()                       # admits the first groups
+            profile_call(sched2.tick, f"phase20a profile of one decode tick "
+                         f"({len(sched2.inflight)} requests in flight)", top=8, groups={
+                             "K7": ("beam_wgmma_kernel", "scalar::kernel"),
+                             "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+                             "gather/scatter": ("index", "scatter", "gather"),
+                             "sort": ("sort", "radix")})
+            sched2.run_until_empty()
+        return res, dict(ticks=ticks, req_s=32 / wall, median_ms=float(np.median(lat)),
+                         p99_ms=float(np.percentile(lat, 99)), launches=sum(per_tick),
+                         high_water=st["pool_high_water"], per_tick=per_tick)
+
+    def against_engine(label, res, scale=1.0):
+        """Each request's beams against `GRServingEngine.generate` on its
+        context (the sound engine): rank-wise score difference and beams
+        whose path differs while their score is clear of its neighbours'."""
+        worst, clear = 0.0, 0
+        for c, r in zip(wave, res):
+            p, s = eng.generate([c])
+            got = (torch.tensor(r["sids"])[None], torch.tensor(r["scores"])[None])
+            want = (torch.from_numpy(p.astype(np.int64)), torch.from_numpy(s))
+            d = compare_beams(got, want, SERVE_LIMITS["scores"])
+            worst, clear = max(worst, d[0]), clear + d[3]
+        log(f"phase20a {label} against GRServingEngine.generate per request: score diff max "
+            f"{worst:.3e} (limit {SERVE_LIMITS['scores']:g}), {clear} beams differ clear of "
+            f"their neighbours")
+        return worst, clear
+
+    # K7 at the path's first decode shapes, and its launches
+    with FirstBeamCall() as first:
+        res1, m1 = drive("fixed width", k=1, profile=True)
+    err = first.check("phase20a")
+    res2, m2 = drive("fixed width", k=2)
+    for label, res in (("k=1", res1), ("k=2", res2)):
+        worst, clear = against_engine(label, res)
+        if worst >= SERVE_LIMITS["scores"] or clear:
+            raise SystemExit(f"phase20a {label}: the scheduler disagrees with the engine")
+    # a faulted control: the scheduler's K7 with scores 10% too large
+    res_c, _ = traced_attention(lambda: drive("control, K7 sm_scale x 1.1", k=2)[0], 0,
+                                scale=1.1)
+    worst, clear = against_engine("the control", res_c)
+    if worst < SERVE_LIMITS["scores"] and not clear:
+        raise SystemExit("phase20a: the faulted control passes the comparison")
+    # the scheduled widths, the score margin, and the trie constraint with the margin
+    drive("scheduled", BeamPolicy(kind="scheduled", width=64, schedule=(64, 64, 32, 16)), k=1)
+    margin = drive("score margin 2.0", BeamPolicy(kind="score_margin", width=64, margin=2.0))[0]
+    if any(max(r["scores"]) - min(r["scores"]) > 2.0 + 1e-4 for r in margin):
+        raise SystemExit("phase20a: a beam outside the score margin")
+    catalog = np.unique(rng.integers(0, 256, size=(20000, H)).astype(np.int32), axis=0)
+    trie = TrieConstraint(catalog, 256)
+
+    def mask(step, paths):
+        node = torch.zeros(paths.shape[:2], dtype=torch.int64, device=paths.device)
+        for s in range(step):
+            node = trie.advance(node, paths[:, :, s], s)
+        return trie.mask_logits(torch.zeros(paths.shape[:2] + (256,), device=paths.device),
+                                node, step)
+
+    trie_res = drive("trie + score margin 3.0", BeamPolicy(kind="score_margin", width=64,
+                                                           margin=3.0), k=2,
+                     processor=lp.make_chain(constraint_mask_fn=mask))[0]
+    allowed = {tuple(r) for r in catalog.tolist()}
+    if any(tuple(sid) not in allowed for r in trie_res for sid in r["sids"]):
+        raise SystemExit("phase20a: a path outside the trie's catalog")
+    return dict(err=err, fixed_k1=m1, fixed_k2=m2, wave=wave)
+
+
+def phase_http(model, wave):
+    """Phase 20b: /generate over HTTP (aiohttp's test server on a local port)
+    for 8 requests, when aiohttp imports."""
+    try:
+        from aiohttp.test_utils import TestClient, TestServer
+    except ImportError as e:
+        log(f"phase20b /generate over HTTP: not run, aiohttp does not import here ({e})")
+        return False
+    from recsys_examples_torch.inference.sid_serving.continuous import ContinuousGRScheduler
+    from recsys_examples_torch.inference.sid_serving.engine import ServingConfig
+    from recsys_examples_torch.inference.sid_serving.http import create_app
+
+    sched = ContinuousGRScheduler(model, ServingConfig(), max_batch=8)
+
+    async def drive():
+        async with TestClient(TestServer(create_app(sched))) as client:
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*(
+                client.post("/generate", json={"input_ids": c.tolist(),
+                                               "sampling_params": {"top_k": 10}})
+                for c in wave[:8]))
+            bodies = [(r.status, await r.json()) for r in outs]
+            wall = time.perf_counter() - t0
+            m = await (await client.get("/metrics")).json()
+            return bodies, m, wall
+
+    bodies, m, wall = asyncio.run(drive())
+    ok = all(s == 200 and len(b["sids"]) == 10 and np.isfinite(b["scores"]).all()
+             for s, b in bodies)
+    log(f"phase20b /generate over HTTP: ran, aiohttp imports; 8 requests in {wall:.2f} s, "
+        f"statuses {[s for s, _ in bodies]}, completed {m['counters'].get('completed')}, "
+        f"dispatches {m['counters'].get('dispatches')}")
+    if not ok or m["counters"].get("completed") != 8:
+        raise SystemExit("phase20b: a /generate request failed")
+    return True
+
+
+def sid_entry(tmp, tag, gin_lines, eval_batches):
+    """`pretrain_sid_gr.main` on a gin file of `gin_lines`: the step median,
+    the eval metrics, K7's launches (held against (H - 1) x L a batch of
+    each eval) and K7 against its plain version at the eval's first call."""
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+    from recsys_examples_torch.training import pretrain_sid_gr
+    from recsys_examples_torch.utils import gin_config
+
+    path = os.path.join(tmp, f"{tag}.gin")
+    with open(path, "w") as f:
+        f.write("\n".join(gin_lines) + "\n")
+    gin_config.clear_config()
+    beam_decode_attn.launches = 0
+    t0 = time.perf_counter()
+    with FirstBeamCall() as first:
+        model = pretrain_sid_gr.main(["--gin-config-file", path])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = beam_decode_attn.launches
+    gin_config.clear_config()
+    cfg = model.config
+    want = eval_batches * (cfg.num_hierarchies - 1) * cfg.num_layers
+    steps = pretrain_sid_gr.LAST_STEP_MS
+    ev = pretrain_sid_gr.LAST_EVAL
+    log(f"phase20c {tag}: {len(steps)} steps in {seconds:.1f} s, step ms median "
+        f"{statistics.median(steps[1:]):.2f} (first {steps[0]:.1f}), eval "
+        + ", ".join(f"{k}={v:.4f}" for k, v in ev.items())
+        + f"; K7 launches {launches} (expected {want}: {eval_batches} eval batches x "
+        f"{cfg.num_hierarchies - 1} steps x {cfg.num_layers} layers)")
+    if launches != want or not ev or not all(np.isfinite(v) and 0 <= v <= 1 for v in ev.values()):
+        raise SystemExit(f"phase20c {tag}: the eval did not run through K7, or bad metrics")
+    err = first.check(f"phase20c {tag}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(step_ms=statistics.median(steps[1:]), launches=launches, eval=dict(ev), err=err)
+
+
+def phase_sid_entries():
+    """Phase 20c: the SID-GR training entry on configs/sid_gr_random.gin as
+    shipped, at the serving widths, and on sid_gr_file.gin's settings over a
+    synthetic interaction log."""
+    import shutil
+    import tempfile
+
+    from recsys_examples_torch.data.sid_sequence_dataset import (
+        build_rq_sid_mapping, preprocess_interactions)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sid_")
+    res = {}
+    try:
+        shipped = (CONFIGS / "sid_gr_random.gin").read_text().splitlines()
+        res["random"] = sid_entry(tmp, "sid_gr_random", shipped, 4)
+        w = SID_WIDTHS
+        wide = [f'include "{CONFIGS / "sid_gr_random.gin"}"',
+                "SIDTrainerArgs.max_train_iters = 10", "SIDTrainerArgs.log_interval = 5",
+                "SIDTrainerArgs.eval_iters = 1", "SIDNetworkArgs.dtype = 'bfloat16'"] + [
+            f"SIDNetworkArgs.{k} = {w[k]}" for k in (
+                "num_hierarchies", "codebook_size", "hidden_size", "num_layers",
+                "num_heads", "head_dim", "ffn_hidden", "beam_width")]
+        res["wide"] = sid_entry(tmp, "serving_widths", wide, 1)
+        # a synthetic interaction log: 4,000 users, 3,000 items, Zipf item draws
+        rng = np.random.default_rng(SEED + 20)
+        raw, seq = os.path.join(tmp, "inter.csv"), os.path.join(tmp, "seq.npz")
+        with open(raw, "w") as f:
+            f.write("user_id,item_id,timestamp\n")
+            for u in range(4000):
+                n = int(rng.integers(3, 40))
+                items = np.minimum(rng.zipf(1.2, n) - 1, 2999)
+                for t, it in zip(np.sort(rng.integers(0, 10 ** 6, n)), items):
+                    f.write(f"{u},{it},{t}\n")
+        t0 = time.perf_counter()
+        stats = preprocess_interactions(raw, seq)
+        mapping = build_rq_sid_mapping(rng.normal(size=(stats["num_items"], 16)),
+                                       [256] * 4, iters=10, seed=0)
+        np.save(os.path.join(tmp, "map.npy"), mapping)
+        log(f"phase20c file data: {stats['num_users']} users, {stats['num_items']} items, "
+            f"{stats['num_interactions']} interactions, preprocess + RQ mapping "
+            f"{time.perf_counter() - t0:.1f} s")
+        file_lines = [f'include "{CONFIGS / "sid_gr_file.gin"}"',
+                      f'SIDDatasetArgs.sequence_path = "{seq}"',
+                      f'SIDDatasetArgs.sid_mapping_path = "{os.path.join(tmp, "map.npy")}"',
+                      "SIDTrainerArgs.max_train_iters = 100", "SIDTrainerArgs.eval_interval = 50",
+                      "SIDTrainerArgs.eval_iters = 8"]
+        res["file"] = sid_entry(tmp, "sid_gr_file", file_lines, 3 * 8)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def phase_sid_path():
+    """Phase 20: SID-GR's stepwise serving, its HTTP front and its training
+    entry on the card."""
+    model = sid_model(SEED + 20, beam_width=64)
+    res = phase_continuous(model)
+    res["http"] = phase_http(model, res.pop("wave"))
+    del model
+    torch.cuda.empty_cache()
+    res["entries"] = phase_sid_entries()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3430,6 +3911,8 @@ def main():
     res["kv_offload"] = timed("phase 16", phase_kv_offload, attn)
     res["repairs"] = timed("phase 17", phase_repairs, attn)
     res["mesh"] = timed("phase 18", phase_mesh, res["entries"]["ranking"])
+    res["export"] = timed("phase 19", phase_export)
+    res["sid_path"] = timed("phase 20", phase_sid_path)
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -3496,7 +3979,13 @@ def main():
         "source": "recsys_examples_torch/csrc/beam_decode_attention.cu",
         "replaces": "recsys_examples_tpu/ops/pallas/beam_decode_attention.py:235",
         "launches": res["sid"][16]["launches"],     # one generate_beam_decode, B 16
-        "max_abs_err": max(r["err"] for r in res["beam"].values()),
+        # phase 20a's wave of 32 through the stepwise scheduler (steps_per_dispatch
+        # 2), and 20c's entry eval at the serving widths
+        "serve_launches": res["sid_path"]["fixed_k2"]["launches"],
+        "eval_launches": res["sid_path"]["entries"]["wide"]["launches"],
+        "max_abs_err": max([r["err"] for r in res["beam"].values()]
+                           + [res["sid_path"]["err"]]
+                           + [e["err"] for e in res["sid_path"]["entries"].values()]),
         "ms": step["kernel_ms"],
         "device_ms": step["device_ms"],             # torch.profiler, per launch
         "plain_ms": step["plain_ms"],

@@ -25,7 +25,7 @@ here needs JAX:
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,21 +88,29 @@ def dense_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return {k: to_torch(v) for k, v in sd.items()}
 
 
+def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
+    """A state_dict key -> its path in the flax param tree, and whether the
+    tensor is an `nn.Linear.weight` (the transpose of flax's kernel)."""
+    parts = key.split(".")
+    names = []
+    for i, part in enumerate(parts):
+        if i > 0 and parts[i - 1] == "layers":
+            names[-1] = f"layer_{part}"
+        else:
+            names.append(part)
+    if names[-1] == "weight":
+        names[-1] = "kernel"
+        return tuple(names), True
+    return tuple(names), False
+
+
 def flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of `dense_state_dict`: a state_dict -> the flax param
     tree, as numpy arrays (for comparing params after a train step)."""
     tree: Dict = {}
     for key, t in state_dict.items():
-        parts = key.split(".")
-        names = []
-        for i, part in enumerate(parts):
-            if i > 0 and parts[i - 1] == "layers":
-                names[-1] = f"layer_{part}"
-            else:
-                names.append(part)
-        value = to_numpy(t)
-        if names[-1] == "weight":
-            names[-1], value = "kernel", value.T
+        names, transposed = flax_path(key)
+        value = to_numpy(t).T if transposed else to_numpy(t)
         node = tree
         for n in names[:-1]:
             node = node.setdefault(n, {})

@@ -8,8 +8,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recsys_examples_tpu")
-# the training entries' slice: torch, numpy and the standard library only
-# (the card's machine has no pandas)
+# the training entries' slice and the modules after it: torch, numpy and
+# the standard library only (the card's machine has no pandas; aiohttp is
+# imported inside the functions that serve)
 ENTRY_SLICE = (
     "utils/gin_config.py", "training/gin_args.py", "utils/logger.py", "utils/watchdog.py",
     "utils/perf.py", "modules/metrics.py", "utils/native.py", "data/sequence_dataset.py",
@@ -21,6 +22,9 @@ ENTRY_SLICE = (
     "dynamicemb/sharded_collection.py", "inference/kvcache.py", "ops/head_dims.py",
     "parallel/mesh.py", "parallel/collective_ops.py", "training/trainer.py",
     "modules/hstu_layer.py", "models/ranking_gr.py", "convert.py",
+    "inference/export.py", "modules/sid_eval_metrics.py", "data/sid_sequence_dataset.py",
+    "training/pretrain_sid_gr.py", "inference/sid_serving/continuous.py",
+    "inference/sid_serving/http.py",
 )
 
 
@@ -224,18 +228,31 @@ def test_sid_gr_entry_points_default_to_cuda():
     assert pa.quantize_kv_pages(pages.float(), pages.float())[2].device.type == "cpu"
 
 
+def _imports_inside_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {node.module if isinstance(node, ast.ImportFrom) else a.name
+            for fn in ast.walk(tree) if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+            for node in ast.walk(fn) if isinstance(node, (ast.Import, ast.ImportFrom))
+            for a in (node.names if isinstance(node, ast.Import) else [None])}
+
+
 def test_entry_slice_imports_torch_numpy_and_stdlib_only():
+    """aiohttp is allowed inside a function only (the HTTP fronts import it
+    where they serve)."""
     import sys
 
     allowed = {"torch", "numpy", "recsys_examples_torch", "__future__"}
     for rel in ENTRY_SLICE:
         path = ROOT / "recsys_examples_torch" / rel
+        lazy = _imports_inside_functions(path)
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top in allowed or top in sys.stdlib_module_names, f"{rel}: {name}"
+            assert top in allowed or top in sys.stdlib_module_names or (
+                top == "aiohttp" and name in lazy), f"{rel}: {name}"
 
 
-@pytest.mark.parametrize("entry", ["pretrain_gr_ranking", "pretrain_gr_retrieval"])
+@pytest.mark.parametrize("entry", ["pretrain_gr_ranking", "pretrain_gr_retrieval",
+                                   "pretrain_sid_gr"])
 def test_training_mains_default_to_cuda(entry, tmp_path):
     """`main` without `--device cpu` raises on a machine without a card,
     before it reads a file or builds a model."""

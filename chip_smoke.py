@@ -5,7 +5,8 @@ the HSTU ranking train step (static tables; dynamic tables; dynamic tables
 and the relative attention bias), SID-GR beam-search serving, the two int8
 kernel modes, the gin-driven ranking and retrieval training entries, the
 ranking export with its C++ replay, and SID-GR's stepwise serving and
-training entry at full width through them, and print one JSON summary.
+training entry at full width through them, Qwen3 SID serving at
+Qwen3-1.7B's widths and the port's tools, and print one JSON summary.
 
 Usage: python3 chip_smoke.py      (one card; exits non-zero without CUDA)
 
@@ -216,6 +217,29 @@ Phases (any failure exits non-zero):
              and `build_rq_sid_mapping`: step ms, eval metrics, K7's launches
              ((H - 1) x L per eval batch) and K7 against its plain version at
              each eval's first call.
+ 21. qwen3   Qwen3 SID serving at Qwen3Config()'s widths (Qwen3-1.7B: vocab
+             151,936, hidden 2048, 28 layers, 16 q / 8 kv heads x 128,
+             intermediate 6144, tied embedding) in bf16 from a seeded init:
+             (a) `Qwen3ServingEngine.generate` at `ServingConfig()` (beam 64)
+             with 4 steps on contexts drawn as benchmark_sid_serving.py's at
+             --ctx 1024 --batch 8, then `GRContinuousScheduler` online: K7's 84
+             launches a generate, offline batch ms, req/s, online median and
+             p99, a profiled generate through `profiler_window` (the runtime's
+             named scopes), the W x V sort's ms, peak memory, one JSON line;
+             (b) K7 against its plain version at the path's first and last
+             decode call; the cached decode's scores against the teacher-forced
+             prefill of the same paths (B 2, context bucket 64) within
+             QWEN3_LIMITS, in bf16 on three model seeds x two context draws
+             and in fp32 (K7's fp32 kernel) on two draws; each faulted
+             control of QWEN3_FAULTS (sm_scale x 1.1, ancestry not
+             re-rooted, earlier steps' beam KV left out) must break it on
+             every draw; (c) a 2-layer checkpoint at full width written in
+             HF bf16 layout and read by `load_hf_weights` (no safetensors
+             package): prefill logits and KV equal the built model's bit for
+             bit; (d) the port's tools on the card at cut sizes
+             (`kernel_parity`, `serving_soak --requests 32`, `http_loadgen
+             --inprocess ranking|sid` for 32 requests, and the three
+             convergence tools for 4 iterations), each JSON line on cuda.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -3869,6 +3893,453 @@ def phase_sid_path():
     return res
 
 
+# ---------------------------------------------------------------- phase 21
+class BeamCalls:
+    """While active, keeps the inputs of the first and the last beam-decode
+    attention call that the Qwen3 decoder makes (`models.qwen3`'s
+    `beam_decode_attn`), and can hand the kernel a faulted call instead:
+    `fault(args, sm_scale) -> (args, sm_scale)` (one of QWEN3_FAULTS).
+    Adds no launch."""
+
+    def __init__(self, fault=None):
+        self.fault, self.first, self.last = fault, None, None
+
+    def __enter__(self):
+        from recsys_examples_torch.models import qwen3
+
+        self.module, self.orig = qwen3, qwen3.beam_decode_attn
+
+        def spy(*a, sm_scale, **kw):
+            if self.first is None:
+                self.first = (a, sm_scale)
+            self.last = (a, sm_scale)
+            if self.fault is not None:
+                a, sm_scale = self.fault(a, sm_scale)
+            return self.orig(*a, sm_scale=sm_scale, **kw)
+
+        qwen3.beam_decode_attn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.beam_decode_attn = self.orig
+
+    def check(self, tag):
+        """K7 on the first and last recorded inputs against its plain version
+        (BEAM_LIMITS, row by row), each launched twice, equal bit for bit."""
+        from recsys_examples_torch.ops import beam_decode_attention as bda
+
+        errs = []
+        for which, rec in (("first", self.first), ("last", self.last)):
+            if rec is None:
+                raise SystemExit(f"{tag}: no beam-decode attention call was recorded")
+            a, scale = rec
+            got = bda.beam_decode_attn(*a, sm_scale=scale)
+            want = bda.beam_decode_attn_ref(*a, sm_scale=scale)
+            err, worst, rel, ok = beam_errors(got, want)
+            same = torch.equal(got, bda.beam_decode_attn(*a, sm_scale=scale))
+            q, k_ctx = a[0], a[1]
+            log(f"{tag} K7 at the path's {which} call: q={tuple(q.shape)} "
+                f"Hkv={k_ctx.shape[2]} S={k_ctx.shape[1]} N={a[4].shape[1]} "
+                f"ctx_lens {int(a[3].min())}..{int(a[3].max())} max_abs_err={err:.3e} "
+                f"worst row at {worst:.3f} of its tol, worst row rel L2 {rel:.3e} "
+                f"repeat equal {same}")
+            if not (ok and same):
+                raise SystemExit(f"{tag}: K7 disagrees with its plain version at the "
+                                 f"path's {which} call")
+            errs.append(err)
+        return max(errs)
+
+
+QWEN3_SEED = SEED + 21
+QWEN3_STEPS = 4            # benchmark_sid_serving.py --hierarchies 4
+
+
+# 21b's faulted controls, each a fault that a real bug would make in the
+# decode's attention call (q, k_ctx, v_ctx, ctx_lens, k_beam, v_beam, ancestry)
+def _fault_scale(a, scale):
+    """The softmax scale 10% too large."""
+    return a, scale * 1.1
+
+
+def _fault_identity_ancestry(a, scale):
+    """The earlier steps' slots not re-rooted through the parents."""
+    anc = a[6]
+    ident = torch.arange(anc.shape[2], device=anc.device).expand(anc.shape).contiguous()
+    return a[:6] + (ident,), scale
+
+
+def _fault_no_earlier_steps(a, scale):
+    """The beam KV of the earlier decode steps left out: each beam sees the
+    context and its own current token only."""
+    return a[:4] + tuple(t[:, -1:].contiguous() for t in a[4:7]), scale
+
+
+QWEN3_FAULTS = {"sm_scale x 1.1": _fault_scale,
+                "identity ancestry": _fault_identity_ancestry,
+                "earlier beam KV left out": _fault_no_earlier_steps}
+# 21b: the cached path's scores (sums of 4 chosen-token log-probs) against
+# the teacher-forced prefill of the same paths, at B 2, context bucket 64,
+# full depth: the largest difference over the 128 paths, on every draw
+# (model seed, context seed) of QWEN3_DRAWS. The path must stay under the
+# limit of its dtype on every draw and every faulted control must exceed it
+# on every draw. Each limit is the geometric mean of the path's largest and
+# the faults' smallest reading on the H100 (bf16: 0.0862 and 0.2383, 1.66x
+# room each side; fp32: 3.43e-5 and 0.2521, 86x; PERF.md section 6).
+QWEN3_DRAWS = {torch.bfloat16: [(m, c) for m in range(3) for c in range(2)],
+               torch.float32: [(0, 0), (0, 1)]}
+QWEN3_LIMITS = {torch.bfloat16: 0.143, torch.float32: 3e-3}
+
+
+def qwen3_model(cfg, seed=QWEN3_SEED, dev="cuda"):
+    """A Qwen3Model of `cfg` on `dev` with flax's default init from a seeded
+    generator, its params cast to `cfg.dtype` (bf16 as `load_hf_weights`
+    gives them)."""
+    from recsys_examples_torch.models.qwen3 import Qwen3Model
+
+    model = Qwen3Model(cfg, device=dev).init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model.to(cfg.dtype).eval()
+
+
+def qwen3_contexts(rng, n, lo, hi, vocab, H=QWEN3_STEPS):
+    """benchmark_sid_serving.py's `mk_ctx`: a length in [lo, hi) cut to whole
+    items, ids uniform over the vocabulary."""
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(lo, hi))
+        m -= m % H
+        out.append(rng.integers(0, vocab, size=(max(m, H),)).astype(np.int32))
+    return out
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_qwen3_path(cfg=None, dev="cuda", iters=5):
+    """Phase 21a: `Qwen3ServingEngine.generate` on an offline batch of 8 at
+    Qwen3-1.7B's widths, then `GRContinuousScheduler` online, as
+    benchmark_sid_serving.py's qwen3 path does at --ctx 1024 --batch 8; a
+    profiled generate; the W x V sort; peak memory. 21b's K7 checks ride on
+    the offline batch's first generate."""
+    import tempfile
+
+    from recsys_examples_torch.inference.sid_serving.engine import (
+        Qwen3ServingEngine, ServingConfig)
+    from recsys_examples_torch.inference.sid_serving.scheduler import GRContinuousScheduler
+    from recsys_examples_torch.models.beam_search import top_k_stable
+    from recsys_examples_torch.models.qwen3 import Qwen3Config
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+    from recsys_examples_torch.utils.observability import profiler_window
+
+    cfg = cfg or Qwen3Config()
+    on_card = torch.device(dev).type == "cuda"
+    model = qwen3_model(cfg, dev=dev)
+    scfg = ServingConfig()
+    ctx, batch, W, H = 1024, 8, scfg.beam_width, QWEN3_STEPS
+    eng = Qwen3ServingEngine(model, scfg, num_steps=H)
+    rng = np.random.default_rng(SEED)
+    mk = lambda n: qwen3_contexts(rng, n, ctx // 2, ctx, cfg.vocab_size)
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"phase21a config: vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, "
+        f"{cfg.num_layers} layers, {cfg.num_heads} q heads / {cfg.num_kv_heads} kv heads "
+        f"x {cfg.head_dim}, intermediate {cfg.intermediate_size}, tied embedding "
+        f"{cfg.tie_word_embeddings}, {nparams / 1e9:.3f}B params in bf16; beam {W}, "
+        f"{H} steps, ctx buckets {scfg.ctx_buckets}, batch buckets {scfg.batch_buckets}")
+
+    # offline: batched generate throughput; the first call is also 21b's K7
+    # check at the path's first and last decode call
+    ctxs = mk(batch)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    beam_decode_attn.launches = 0
+    with BeamCalls() as calls:
+        paths, scores = eng.generate(ctxs)
+    launches = beam_decode_attn.launches
+    expected = cfg.num_layers * (H - 1)
+    if paths.shape != (batch, W, H) or not np.isfinite(scores).all():
+        raise SystemExit(f"phase21a: bad offline answer {paths.shape}")
+    if ((paths < 0) | (paths >= cfg.vocab_size)).any() or (np.diff(scores, axis=1) > 0).any():
+        raise SystemExit("phase21a: tokens outside the vocabulary or scores out of order")
+    if on_card and launches != expected:
+        raise SystemExit(f"phase21a: K7 launched {launches} times in one generate, "
+                         f"expected {expected}")
+    k7_err = calls.check("phase21b")
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng.generate(ctxs)
+    dt = (time.perf_counter() - t0) / iters
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+
+    # online: per-request latency through the batch scheduler
+    sched = GRContinuousScheduler(eng, max_batch=batch)
+    lat = []
+    for _ in range(iters):
+        rids = [sched.submit(c, top_k=10) for c in mk(batch)]
+        sched.run_until_empty()
+        for rid in rids:
+            r = sched.get_result(rid)
+            if r is None or len(r.get("sids", ())) != 10:
+                raise SystemExit(f"phase21a: request not answered: {r}")
+            lat.append(r["latency_ms"])
+    lat = np.asarray(lat)
+
+    # one profiled generate, through the port's profiler window (its chrome
+    # trace goes to a temp dir); its scopes are the runtime's named_scope ranges
+    sync(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as out_dir:
+        with profiler_window(out_dir) as prof:
+            t0 = time.perf_counter()
+            eng.generate(ctxs)
+            sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    profile_report(prof, "phase21a profile of one offline generate (B 8)", wall_ms, top=12,
+                   groups={"K7": ("beam_wgmma",), "sort": ("sort", "radix"),
+                           "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
+                           "softmax": ("softmax",)},
+                   split={"K7": BEAM_KERNELS})
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type.name == "CUDA" and "#" not in e.key
+                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    scopes = {}
+    for e in events:     # a scope's host range and its device-side annotation
+        if e.key.startswith("qwen3/"):
+            host, dev_ms = scopes.get(e.key, (0.0, 0.0))
+            if e.device_type.name == "CPU":
+                host += e.cpu_time_total / 1e3
+            else:
+                dev_ms += e.device_time_total / 1e3
+            scopes[e.key] = (host, dev_ms)
+    for name in sorted(scopes):
+        log(f"  scope {name}: host range {scopes[name][0]:.2f} ms, device range "
+            f"{scopes[name][1]:.2f} ms")
+    if on_card and not {"qwen3/prefill", "qwen3/decode_1", f"qwen3/decode_{H - 1}"} <= set(scopes):
+        raise SystemExit(f"phase21a: the profile lacks the runtime's scopes: {sorted(scopes)}")
+
+    # the W x V sort of one decode step: `top_k_stable` over B x (W * V)
+    x = torch.randn(batch, W * cfg.vocab_size, device=dev)
+    sort_ms = cuda_time_ms(lambda: top_k_stable(x, W), 3) if on_card else float("nan")
+    del x
+    line = {
+        "metric": "sid_serving", "backbone": "qwen3", "beam": W, "ctx_bucket": ctx,
+        "batch": batch, "offline_batch_ms": round(dt * 1e3, 2),
+        "offline_req_per_s": round(batch / dt, 2),
+        "online_median_ms": round(float(np.median(lat)), 2),
+        "online_p99_ms": round(float(np.percentile(lat, 99)), 2),
+        "k7_launches_per_generate": launches,
+        "profiled_busy_share": round(busy_ms / wall_ms, 4),
+        "wv_sort_ms": round(sort_ms, 3), "peak_gib": round(peak_gib, 2),
+        "backend": torch.device(dev).type}
+    print(json.dumps(line), flush=True)
+    return model, dict(line=line, launches=launches, err=k7_err)
+
+
+def qwen3_check_draw(model, seed, limit):
+    """One draw of 21b: two contexts of 8-63 tokens from `seed`; the cached
+    path and each faulted control against the teacher-forced prefill of the
+    paths each chose. Returns {name: largest |score - teacher-forced|}."""
+    from recsys_examples_torch.inference.sid_serving.qwen3_runtime import (
+        qwen3_generate_beam, teacher_forced_logp)
+
+    rng = np.random.default_rng(SEED + 1 + seed)
+    ctxs = qwen3_contexts(rng, 2, 8, 64, model.config.vocab_size)
+    tokens = np.zeros((2, 64), np.int64)
+    lens = np.array([len(c) for c in ctxs])
+    for i, c in enumerate(ctxs):
+        tokens[i, :len(c)] = c
+    res = {}
+    for name, fault in (("path", None), *QWEN3_FAULTS.items()):
+        with BeamCalls(fault) as calls:
+            paths, scores = qwen3_generate_beam(model, tokens, lens, QWEN3_STEPS, 64)
+        if calls.first is None:
+            raise SystemExit("phase21b: the decode made no beam-decode attention call")
+        want = sum(torch.gather(teacher_forced_logp(model, tokens, lens, paths, h), 2,
+                                paths[:, :, h:h + 1])[..., 0] for h in range(QWEN3_STEPS))
+        diff = (scores - want).abs()
+        res[name] = diff.max().item()
+        log(f"phase21b {str(model.config.dtype)[6:]} ctx seed {seed} {name}: ctx lens "
+            f"{lens.tolist()}, |score - teacher-forced| max {res[name]:.4e} median "
+            f"{diff.median().item():.4e} (limit {limit})")
+    return res
+
+
+def phase_qwen3_check(model, dev="cuda"):
+    """Phase 21b: the cached path (prefill, then K7 decode steps) against the
+    teacher-forced prefill of the paths it chose, at B 2, context bucket 64,
+    full depth, on every draw of QWEN3_DRAWS in bf16 (the path's kernel) and
+    fp32 (K7's fp32 kernel, where bf16's rounding does not hide a fault);
+    every faulted control of QWEN3_FAULTS must break the limit on every draw.
+    `model` (bf16) serves the draws of model seed 0."""
+    import dataclasses
+
+    out = {}
+    for dt, draws in QWEN3_DRAWS.items():
+        limit, readings, cur, m = QWEN3_LIMITS[dt], {}, None, None
+        for mseed, cseed in draws:
+            if cur != mseed:
+                m = None
+                empty_cache(dev)
+                m = (model if mseed == 0 and dt == model.config.dtype else
+                     qwen3_model(dataclasses.replace(model.config, dtype=dt),
+                                 seed=QWEN3_SEED + mseed, dev=dev))
+                cur = mseed
+            log(f"phase21b {str(dt)[6:]} draw: model seed {mseed}")
+            for name, err in qwen3_check_draw(m, cseed, limit).items():
+                readings.setdefault(name, []).append(err)
+        m = None
+        empty_cache(dev)
+        path, faults = max(readings.pop("path")), {k: min(v) for k, v in readings.items()}
+        log(f"phase21b {str(dt)[6:]} over {len(draws)} draws: path max {path:.4e}; "
+            "faulted controls' min " + ", ".join(f"{k} {v:.4e}" for k, v in faults.items())
+            + f"; limit {limit}")
+        if not path < limit:
+            raise SystemExit(f"phase21b: the cached decode ({dt}) disagrees with the "
+                             "teacher-forced prefill")
+        for k, v in faults.items():
+            if not v > limit:
+                raise SystemExit(f"phase21b: the faulted control '{k}' ({dt}) passed "
+                                 "the comparison on some draw")
+        out[str(dt)[6:]] = dict(path=path, **faults)
+    return out
+
+
+def write_hf_checkpoint(state_dict, path):
+    """The port's Qwen3 state_dict as a HuggingFace checkpoint file in the
+    safetensors format (bf16, the HF names), written here byte by byte: a
+    little-endian u64 header length, a JSON header, the raw tensors."""
+    import struct
+
+    header, blobs, off = {}, [], 0
+    for name, t in state_dict.items():
+        hf = "model." + name + ("" if name.endswith(".weight") else ".weight")
+        raw = t.detach().to(torch.bfloat16).contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        header[hf] = {"dtype": "BF16", "shape": list(t.shape),
+                      "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)))
+        f.write(h)
+        for b in blobs:
+            f.write(b)
+    return off
+
+
+def phase_qwen3_loader(dev="cuda", cfg=None):
+    """Phase 21c: a 2-layer checkpoint at full width written in HF bf16
+    layout, read back by `load_hf_weights` (no safetensors package); its
+    prefill logits equal those of the same weights built in memory, bit for
+    bit."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+
+    from recsys_examples_torch.models.qwen3 import Qwen3Config, Qwen3Model, load_hf_weights
+
+    cfg = cfg or dataclasses.replace(Qwen3Config(), num_layers=2)
+    built = qwen3_model(cfg, seed=QWEN3_SEED + 1, dev=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_qwen3_") as tmp:
+        nbytes = write_hf_checkpoint(built.state_dict(), os.path.join(tmp, "model.safetensors"))
+        t0 = time.perf_counter()
+        sd = load_hf_weights(tmp, cfg)
+        load_s = time.perf_counter() - t0
+    loaded = Qwen3Model(cfg, device=dev).to(torch.bfloat16).eval()
+    loaded.load_state_dict(sd)
+    rng = np.random.default_rng(SEED + 2)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 64)), device=dev)
+    lens = torch.as_tensor([64, 37], device=dev)
+    with torch.no_grad():
+        a, akv = built.prefill(tok, lens)
+        b, bkv = loaded.prefill(tok, lens)
+    same = torch.equal(a, b) and all(torch.equal(x, y) for p, q in zip(akv, bkv)
+                                     for x, y in zip(p, q))
+    log(f"phase21c HF checkpoint: {cfg.num_layers} layers at vocab {cfg.vocab_size}, hidden "
+        f"{cfg.hidden_size}, {nbytes / 2**20:.1f} MiB of bf16, read by load_hf_weights in "
+        f"{load_s:.2f} s (installed, though the loader uses neither: safetensors "
+        f"{importlib.util.find_spec('safetensors') is not None}, ml_dtypes "
+        f"{importlib.util.find_spec('ml_dtypes') is not None}); prefill logits and KV "
+        f"equal bit for bit: {same}")
+    if not same:
+        raise SystemExit("phase21c: the loaded checkpoint's logits differ from the built model's")
+    return same
+
+
+def phase_tools(dev="cuda"):
+    """Phase 21d: the port's tools on `dev`, each at a cut size in a temp dir;
+    each prints its JSON line, and every backend must be `dev`'s."""
+    import tempfile
+
+    kind = torch.device(dev).type
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        return _run_tools(dev, kind, tmp)
+
+
+def _run_tools(dev, kind, tmp):
+    import contextlib
+    import io
+
+    from recsys_examples_torch.tools import (convergence_retrieval, convergence_sid,
+                                             convergence_synthetic, http_loadgen,
+                                             kernel_parity, serving_soak)
+
+    runs = [
+        ("kernel_parity", kernel_parity, ["--out", os.path.join(tmp, "kernel_parity.json")]),
+        ("serving_soak", serving_soak, ["--requests", "32"]),
+        ("http_loadgen ranking", http_loadgen, ["--inprocess", "ranking", "--requests", "32"]),
+        ("http_loadgen sid", http_loadgen, ["--inprocess", "sid", "--requests", "32"]),
+        ("convergence_synthetic", convergence_synthetic,
+         ["--iters", "4", "--users", "300", "--eval-iters", "2", "--log-every", "2",
+          "--workdir", os.path.join(tmp, "syn")]),
+        ("convergence_retrieval", convergence_retrieval,
+         ["--iters", "4", "--users", "300", "--log-every", "2", "--eval-every", "4",
+          "--workdir", os.path.join(tmp, "ret")]),
+        ("convergence_sid", convergence_sid,
+         ["--iters", "4", "--users", "300", "--items", "100", "--eval-iters", "1",
+          "--workdir", os.path.join(tmp, "sid")]),
+    ]
+    out = {}
+    for name, mod, argv in runs:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv + ["--device", dev])
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        for ln in lines:
+            log(f"phase21d {name}: {json.dumps(ln)}")
+        log(f"phase21d {name} took {time.perf_counter() - t0:.1f} s")
+        if not lines or any(ln.get("backend") != kind for ln in lines):
+            raise SystemExit(f"phase21d {name}: no JSON line on {kind}")
+        out[name] = lines
+    if not out["kernel_parity"][0]["all_pass"]:
+        raise SystemExit("phase21d kernel_parity: a kernel failed")
+    for name in ("http_loadgen ranking", "http_loadgen sid"):
+        if out[name][0]["completed"] != 32 or out[name][0]["errors"]:
+            raise SystemExit(f"phase21d {name}: not every request was answered")
+    return out
+
+
+def phase_qwen3():
+    """Phase 21: Qwen3 SID serving at Qwen3-1.7B's widths through K7, the HF
+    weight loader, and the port's tools, on the card."""
+    model, res = phase_qwen3_path()
+    res["check"] = phase_qwen3_check(model)
+    del model
+    torch.cuda.empty_cache()
+    res["loader"] = phase_qwen3_loader()
+    torch.cuda.empty_cache()
+    res["tools"] = phase_tools()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3913,6 +4384,7 @@ def main():
     res["mesh"] = timed("phase 18", phase_mesh, res["entries"]["ranking"])
     res["export"] = timed("phase 19", phase_export)
     res["sid_path"] = timed("phase 20", phase_sid_path)
+    res["qwen3"] = timed("phase 21", phase_qwen3)
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -3983,8 +4455,10 @@ def main():
         # 2), and 20c's entry eval at the serving widths
         "serve_launches": res["sid_path"]["fixed_k2"]["launches"],
         "eval_launches": res["sid_path"]["entries"]["wide"]["launches"],
+        # phase 21a: one Qwen3ServingEngine.generate at Qwen3-1.7B's widths
+        "qwen3_launches": res["qwen3"]["launches"],
         "max_abs_err": max([r["err"] for r in res["beam"].values()]
-                           + [res["sid_path"]["err"]]
+                           + [res["sid_path"]["err"], res["qwen3"]["err"]]
                            + [e["err"] for e in res["sid_path"]["entries"].values()]),
         "ms": step["kernel_ms"],
         "device_ms": step["device_ms"],             # torch.profiler, per launch

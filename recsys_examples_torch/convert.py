@@ -22,6 +22,8 @@ here needs JAX:
   - `dynamic_table_shard`: the JAX package's row-sharded table state (each
     leaf the W shards' arrays stacked on the leading dim, as its
     `shard_map` lays them out) -> one data rank's state.
+  - `qwen3_state_dict`: a `Qwen3Model`'s flax tree (from `init` or from the
+    JAX `load_hf_weights`) -> the port's `Qwen3Model` state_dict.
 """
 from __future__ import annotations
 
@@ -86,6 +88,16 @@ def dense_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, [])
     return {k: to_torch(v) for k, v in sd.items()}
+
+
+def qwen3_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A `Qwen3Model` flax tree (with or without its {"params": ...} wrapper)
+    -> the port's state_dict: `dense_state_dict`'s rules, and flax
+    `nn.Embed`'s `embed_tokens.embedding` is `embed_tokens.weight`."""
+    params = params.get("params", params)
+    sd = dense_state_dict(params)
+    sd["embed_tokens.weight"] = sd.pop("embed_tokens.embedding")
+    return sd
 
 
 def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:

@@ -357,6 +357,14 @@ class SequenceDataset:
                 return
 
 
+def sequence_dataset_iterator(ds_args, trainer_args) -> Iterator[HSTUBatch]:
+    """The train stream of `ds_args`' file dataset, seeded by the trainer's
+    seed."""
+    ds = make_sequence_dataset(ds_args)
+    yield from ds.batches(ds_args.batch_size, train=True, seed=trainer_args.seed,
+                          shuffle=ds_args.shuffle)
+
+
 def make_sequence_dataset(ds_args, max_num_candidates=None) -> "SequenceDataset":
     """`max_num_candidates` overrides ds_args (the eval loop trains on the
     last-N candidates of the train split but scores the holdout alone, so

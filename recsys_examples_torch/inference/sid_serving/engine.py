@@ -11,11 +11,12 @@ the model's device once, and paths and scores are read back once per call.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Set, Tuple
+from typing import Callable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
 from recsys_examples_torch.data.sid_batch import SIDBatch
+from recsys_examples_torch.inference.sid_serving.qwen3_runtime import qwen3_generate_beam
 from recsys_examples_torch.models.sid_gr import SIDGRModel
 
 
@@ -84,3 +85,40 @@ class GRServingEngine:
         for Bb in self.cfg.batch_buckets:
             for N in self.cfg.ctx_buckets:
                 self.generate([np.zeros((min(H, N),), np.int32)] * Bb)
+
+
+class Qwen3ServingEngine(GRServingEngine):
+    """Serving over the Qwen3 backbone: contexts are flat SID token streams in
+    the Qwen3 vocab, padded into a [batch bucket, context bucket] block; an
+    empty context decodes from position 0 (its length counts as 1)."""
+
+    def __init__(self, model, cfg: ServingConfig, num_steps: int,
+                 logits_mask_fn: Optional[Callable] = None):
+        super().__init__(model, cfg)
+        self.num_steps = num_steps
+        self.logits_mask_fn = logits_mask_fn
+
+    def generate(self, contexts: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        B = len(contexts)
+        Bb = _bucket(B, self.cfg.batch_buckets)
+        maxlen = max((len(c) for c in contexts), default=1)
+        N = _bucket(max(maxlen, 1), self.cfg.ctx_buckets)
+        tokens = np.zeros((Bb, N), np.int64)
+        lens = np.zeros((Bb,), np.int64)
+        for i, c in enumerate(contexts):
+            tokens[i, :len(c)] = c
+            lens[i] = len(c)
+        lens = np.maximum(lens, 1)
+        if (Bb, N) not in self._seen:
+            self._seen.add((Bb, N))
+            self.compile_count += 1
+        paths, scores = qwen3_generate_beam(
+            self.model, tokens, lens, num_steps=self.num_steps,
+            beam_width=self.cfg.beam_width, logits_mask_fn=self.logits_mask_fn)
+        return (paths[:B].to("cpu").numpy().astype(np.int32),
+                scores[:B].to("cpu").numpy())
+
+    def warmup(self):
+        for Bb in self.cfg.batch_buckets:
+            for N in self.cfg.ctx_buckets:
+                self.generate([np.zeros((1,), np.int32)] * Bb)

@@ -475,3 +475,45 @@ def hstu_attn_bwd_ref(
             _jagged(dk.to(k.dtype), seq_offsets, T),
             _jagged(dv.to(v.dtype), seq_offsets, T),
             drab)
+
+
+def hstu_cached_mha_reference(
+    N: int,
+    scaling_seqlen: int,
+    alpha: float,
+    delta_q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    delta_x_offsets: torch.Tensor,
+    seq_offsets: torch.Tensor,
+    num_targets: Optional[torch.Tensor] = None,
+    max_attn_len: int = 0,
+) -> torch.Tensor:
+    """Delta-q (KV-cached inference) HSTU attention.
+
+    delta_q: [L, H, D] new-token queries (L = B * delta_len, equal per batch
+    row); k/v: [T, H, D] the whole jagged keys/values; delta_x_offsets: [L]
+    the new tokens' global positions. Returns [L, H, V] in v's dtype."""
+    L, H, D = delta_q.shape
+    V = v.shape[2]
+    B = seq_offsets.shape[0] - 1
+    seq_offsets = seq_offsets.to(torch.int64)
+    dq = delta_q.reshape(B, -1, H, D).transpose(1, 2).float()        # [B, H, dL, D]
+    fk, fv = _padded(k, seq_offsets, N), _padded(v, seq_offsets, N)
+    p = F.silu(torch.einsum("bhxa,bhya->bhxy", dq, fk.float()) * alpha) * (1.0 / scaling_seqlen)
+    seq_lengths = seq_offsets[1:] - seq_offsets[:-1]
+    col_ids = torch.arange(N, device=k.device)[None, None, :]
+    row_ids = (delta_x_offsets.to(torch.int64).reshape(B, -1)
+               - seq_offsets[:-1, None])[:, :, None]
+    valid = col_ids == row_ids
+    if num_targets is not None:
+        last = (seq_lengths - num_targets.to(torch.int64)).reshape(B, 1, 1)
+        row_ids = torch.minimum(row_ids, last)
+        col_ids = torch.minimum(col_ids.expand(valid.shape), last)
+    dist = row_ids - col_ids
+    valid = valid | (dist > 0)
+    if max_attn_len > 0:
+        valid = valid & (dist <= max_attn_len)
+    p = p * valid[:, None].to(p.dtype)
+    out = torch.einsum("bhxy,bhyv->bhxv", p.to(fv.dtype).float(), fv.float())
+    return out.transpose(1, 2).reshape(L, H, V).to(v.dtype)

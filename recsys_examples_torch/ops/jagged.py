@@ -9,7 +9,7 @@ which PyTorch runs as they are; the attention kernels live in
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -150,3 +150,29 @@ def interleave_jagged(values_a: torch.Tensor, values_b: torch.Tensor) -> torch.T
     Lengths double."""
     T, D = values_a.shape
     return torch.stack([values_a, values_b], dim=1).reshape(2 * T, D)
+
+
+def jagged_dense_bmm_broadcast_add(
+    values: torch.Tensor,
+    offsets: torch.Tensor,
+    dense: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-sample jagged @ dense[b] + bias[b]: values [T, K], dense [B, K, N],
+    bias [B, N] or None -> [T, N] in values' dtype (fp32 sums); rows past
+    offsets[-1] are zero."""
+    b = row_to_batch(offsets, values.shape[0])
+    out = torch.einsum("tk,tkn->tn", values.float(), dense[b].float()).to(values.dtype)
+    if bias is not None:
+        out = out + bias[b]
+    mask = torch.arange(values.shape[0], device=values.device) < offsets[-1]
+    return out * mask[:, None].to(out.dtype)
+
+
+def jagged_reduce_sum(values: torch.Tensor, offsets: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Per-sample sum of jagged rows -> [num_segments, D]."""
+    b = row_to_batch(offsets, values.shape[0])
+    mask = torch.arange(values.shape[0], device=values.device) < offsets[-1]
+    masked = values * _rows(mask, values).to(values.dtype)
+    return values.new_zeros((num_segments,) + values.shape[1:]).index_add_(0, b, masked)

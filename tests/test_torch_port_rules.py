@@ -24,7 +24,12 @@ ENTRY_SLICE = (
     "modules/hstu_layer.py", "models/ranking_gr.py", "convert.py",
     "inference/export.py", "modules/sid_eval_metrics.py", "data/sid_sequence_dataset.py",
     "training/pretrain_sid_gr.py", "inference/sid_serving/continuous.py",
-    "inference/sid_serving/http.py",
+    "inference/sid_serving/http.py", "models/qwen3.py", "inference/sid_serving/qwen3_runtime.py",
+    "inference/sid_serving/engine.py", "utils/observability.py", "ops/jagged.py",
+    "ops/hstu_attention_ref.py", "jagged/jagged_tensor.py", "tools/__init__.py",
+    "tools/kernel_parity.py", "tools/convergence_synthetic.py",
+    "tools/convergence_retrieval.py", "tools/convergence_sid.py", "tools/build_sid_mapping.py",
+    "tools/serving_soak.py", "tools/http_loadgen.py",
 )
 
 
@@ -271,3 +276,46 @@ def test_training_mains_default_to_cuda(entry, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--gin-config-file", str(cfg), "--device", "cuda:0"])
     assert not gin_config._BINDINGS        # raised before parsing the file
+
+
+def test_qwen3_serving_defaults_to_cuda():
+    """The Qwen3 model lives on the card unless the caller says "cpu"; its
+    decode step runs the beam attention's plain version on CPU tensors and
+    launches no kernel there."""
+    import numpy as np
+
+    from recsys_examples_torch.inference.sid_serving.qwen3_runtime import qwen3_generate_beam
+    from recsys_examples_torch.models.qwen3 import Qwen3Config, Qwen3Model
+    from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+
+    cfg = Qwen3Config.tiny(vocab_size=16)
+    model = Qwen3Model(cfg, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    before = beam_decode_attn.launches
+    paths, _ = qwen3_generate_beam(model, np.ones((1, 4)), np.array([4]), 3, 2)
+    assert paths.device.type == "cpu" and beam_decode_attn.launches == before
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Qwen3Model(cfg)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("kernel_parity", []), ("serving_soak", []), ("http_loadgen", ["--inprocess", "sid"]),
+    ("convergence_synthetic", []), ("convergence_retrieval", []), ("convergence_sid", []),
+    ("build_sid_mapping", None)])
+def test_tools_default_to_cuda(tool, argv):
+    """Every port tool's `--device` defaults to cuda, and raises without a
+    card before it writes a file (build_sid_mapping's device work is its
+    co-occurrence embedding)."""
+    import importlib
+
+    import numpy as np
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    mod = importlib.import_module(f"recsys_examples_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if argv is None:
+            mod.cooccurrence_embeddings(np.zeros(2, np.int64), np.array([0, 2]), 2)
+        else:
+            mod.main(argv)

@@ -23,7 +23,8 @@ owner writes the row (see `insert_and_evict`).
 Host syncs: the scatters go through `utils.scatter.masked_set_` and never
 wait for the device. `insert_and_evict` reads one flag per round from the
 device (are any keys still pending?), so a call whose keys are all resident
-costs one sync and runs no round, as the JAX `while_loop` does.
+costs one sync and runs no round, as the JAX `while_loop` does. While
+tracing is on, the counter `emb/insert_rounds` counts those syncs.
 
 Scores are int64; larger = more recently/frequently used = kept longer.
 """
@@ -35,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from recsys_examples_torch.dynamicemb.dynamicemb_config import EMPTY_KEY, hash_keys
+from recsys_examples_torch.utils import observability
 from recsys_examples_torch.utils.device import resolve_device
 from recsys_examples_torch.utils.scatter import masked_set_
 
@@ -220,6 +222,7 @@ def insert_and_evict(
     pending = active & ~found_any
 
     for _ in range(rounds):
+        observability.count("emb/insert_rounds")
         if not bool(pending.any()):      # the one host sync of a round
             break
         bucket_keys = state.keys[b]

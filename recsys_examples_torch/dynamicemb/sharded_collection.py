@@ -38,7 +38,9 @@ from recsys_examples_torch.dynamicemb.dynamicemb_config import (
     umod,
 )
 from recsys_examples_torch.dynamicemb.unique_op import segmented_unique
+from recsys_examples_torch.utils import observability
 from recsys_examples_torch.utils.device import resolve_device
+from recsys_examples_torch.utils.observability import named_scope
 
 _GOLDEN_GAMMA = _u64_const(0x9E3779B97F4A7C15)
 
@@ -49,6 +51,18 @@ def route_owner(keys: torch.Tensor, W: int) -> torch.Tensor:
     bit). The gamma decorrelates the owner from the bucket hash inside a
     shard (`hash_keys`, the bare finalizer)."""
     return umod(splitmix64(keys.to(torch.int64) + _GOLDEN_GAMMA), W)
+
+
+def _count_lookup(table, keys, slots, before) -> None:
+    """Phase A's counters while tracing is on (device counts, read only by
+    `observability.snapshot()`): the unique keys the table looked up, the
+    hits among them, and what the lookup added to the table's inserted,
+    evicted and overflowed counters (`before`: those three before it)."""
+    d = torch.cat([table.inserted, table.evicted, table.overflowed]) - before
+    observability.count("emb/unique_keys", (keys != EMPTY_KEY).sum())
+    observability.count("emb/hits", (slots >= 0).sum() - d[0])
+    for i, name in enumerate(("emb/inserted", "emb/evicted", "emb/overflowed")):
+        observability.count(name, d[i])
 
 
 class LookupResidual(NamedTuple):
@@ -97,14 +111,23 @@ class ShardedDynamicEmbedding:
     def forward(self, state: DynamicEmbTableState, ids: torch.Tensor, train: bool = True
                 ) -> Tuple[DynamicEmbTableState, torch.Tensor, LookupResidual]:
         """ids [T] int64 (this rank's tokens) -> (state, per-token embeddings
-        [T, dim], residual). The state is updated in place when `train`."""
-        if self.mesh is None:
-            return self._fwd_local(state, ids, train)
-        return self._fwd_exchange(state, ids, train)
+        [T, dim], residual). The state is updated in place when `train`,
+        inside the span `emb/phase_a`."""
+        fwd = self._fwd_local if self.mesh is None else self._fwd_exchange
+        if not train:
+            return fwd(state, ids, False)
+        with named_scope("emb/phase_a"):
+            return fwd(state, ids, True)
 
     def _lookup(self, state, uk, train):
         if train:
+            counting = observability.enabled()
+            if counting:
+                t = state.table
+                before = torch.cat([t.inserted, t.evicted, t.overflowed])
             state, slots, uemb = self.table.forward_train(state, uk)
+            if counting:
+                _count_lookup(state.table, uk, slots, before)
         else:
             uemb = self.table.forward_eval(state, uk)
             slots = torch.full(uk.shape, -1, dtype=torch.int64, device=uk.device)
@@ -175,22 +198,24 @@ class ShardedDynamicEmbedding:
     @torch.no_grad()
     def backward(self, state: DynamicEmbTableState, res: LookupResidual,
                  grad_out: torch.Tensor) -> DynamicEmbTableState:
-        """grad_out [T, dim]: the per-token embedding grads of this rank."""
-        # token grads -> local unique-row grads, summed in fp32
-        gu = torch.zeros(grad_out.shape, dtype=torch.float32, device=grad_out.device)
-        gu.index_add_(0, res.reverse_idx, grad_out.float())
-        if self.mesh is None:
-            return self.table.backward(state, res.slots, gu, keys=res.recv_keys)
-        ss, rs = res.send_splits.tolist(), res.recv_splits.tolist()
-        send = torch.empty_like(gu)
-        send[res.pos] = gu
-        recv = self._exchange(send[:sum(ss)], ss, rs)
-        # per owner row, in fp32, in lane order (source rank, then lane):
-        # index_put_ with accumulate is deterministic on CUDA too
-        gsum = torch.zeros((res.recv_keys.shape[0], gu.shape[1]), dtype=torch.float32,
-                           device=gu.device)
-        gsum.index_put_((res.recv_reverse,), recv, accumulate=True)
-        return self.table.backward(state, res.slots, gsum, keys=res.recv_keys)
+        """grad_out [T, dim]: the per-token embedding grads of this rank.
+        Runs inside the span `emb/phase_c`."""
+        with named_scope("emb/phase_c"):
+            # token grads -> local unique-row grads, summed in fp32
+            gu = torch.zeros(grad_out.shape, dtype=torch.float32, device=grad_out.device)
+            gu.index_add_(0, res.reverse_idx, grad_out.float())
+            if self.mesh is None:
+                return self.table.backward(state, res.slots, gu, keys=res.recv_keys)
+            ss, rs = res.send_splits.tolist(), res.recv_splits.tolist()
+            send = torch.empty_like(gu)
+            send[res.pos] = gu
+            recv = self._exchange(send[:sum(ss)], ss, rs)
+            # per owner row, in fp32, in lane order (source rank, then lane):
+            # index_put_ with accumulate is deterministic on CUDA too
+            gsum = torch.zeros((res.recv_keys.shape[0], gu.shape[1]), dtype=torch.float32,
+                               device=gu.device)
+            gsum.index_put_((res.recv_reverse,), recv, accumulate=True)
+            return self.table.backward(state, res.slots, gsum, keys=res.recv_keys)
 
 
 class AdaptiveBucketing:

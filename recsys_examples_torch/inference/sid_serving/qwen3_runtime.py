@@ -9,8 +9,10 @@ step. An optional per-step logits mask and a logits processor chain (in
 that order) plug in constrained decoding.
 
 Everything runs on the model's device; `tokens` and `lengths` may be numpy
-arrays or tensors. The prefill and each decode step run inside a
-`named_scope` ("qwen3/prefill", "qwen3/decode_h"), which a profiler shows.
+arrays or tensors. `qwen3_generate_beam` runs in spans (`named_scope`):
+`serve/pack` (the inputs to the device), `qwen3/prefill`, `qwen3/expand`
+(the first beam and the beam KV buffers), `qwen3/decode_h` for each decode
+step h, and `qwen3/paths`.
 """
 from __future__ import annotations
 
@@ -55,29 +57,32 @@ def qwen3_generate_beam(
     `LogitsProcessor` or chain (`logits_processor.py`), applied after the
     mask."""
     cfg = model.config
-    tokens, lengths = _on(model, tokens, lengths)
+    with named_scope("serve/pack"):
+        tokens, lengths = _on(model, tokens, lengths)
     dev = tokens.device
     B, W, L = tokens.shape[0], beam_width, cfg.num_layers
     Hkv, dh = cfg.num_kv_heads, cfg.head_dim
 
     with named_scope("qwen3/prefill"):
         last_logits, ctx_kv = model.prefill(tokens, lengths)
-    logp0 = _log_softmax(last_logits)
-    state = init_beam(B, W, num_steps, device=dev)
-    if logits_mask_fn is not None:
-        logp0 = logp0 + logits_mask_fn(
-            0, torch.zeros((B, W, 0), dtype=torch.int64, device=dev))[:, 0]
-    if logits_processor is not None:
-        # one implicit beam at prefill (SIDGRModel.beam_prefill's contract)
-        logp0 = logits_processor(
-            0, logp0[:, None, :], torch.zeros((B, 1, 0), dtype=torch.int64, device=dev))[:, 0]
-    state = first_expand(state, logp0)
+    with named_scope("qwen3/expand"):
+        logp0 = _log_softmax(last_logits)
+        state = init_beam(B, W, num_steps, device=dev)
+        if logits_mask_fn is not None:
+            logp0 = logp0 + logits_mask_fn(
+                0, torch.zeros((B, W, 0), dtype=torch.int64, device=dev))[:, 0]
+        if logits_processor is not None:
+            # one implicit beam at prefill (SIDGRModel.beam_prefill's contract)
+            logp0 = logits_processor(
+                0, logp0[:, None, :],
+                torch.zeros((B, 1, 0), dtype=torch.int64, device=dev))[:, 0]
+        state = first_expand(state, logp0)
 
-    kv_shape = (B, num_steps - 1, W, Hkv, dh)
-    beam_k = [torch.zeros(kv_shape, dtype=cfg.dtype, device=dev) for _ in range(L)]
-    beam_v = [torch.zeros(kv_shape, dtype=cfg.dtype, device=dev) for _ in range(L)]
-    A = torch.zeros((B, max(num_steps - 1, 1), W), dtype=torch.int64, device=dev)
-    ident = torch.arange(W, device=dev).expand(B, W)
+        kv_shape = (B, num_steps - 1, W, Hkv, dh)
+        beam_k = [torch.zeros(kv_shape, dtype=cfg.dtype, device=dev) for _ in range(L)]
+        beam_v = [torch.zeros(kv_shape, dtype=cfg.dtype, device=dev) for _ in range(L)]
+        A = torch.zeros((B, max(num_steps - 1, 1), W), dtype=torch.int64, device=dev)
+        ident = torch.arange(W, device=dev).expand(B, W)
 
     for h in range(1, num_steps):
         with named_scope(f"qwen3/decode_{h}"):
@@ -105,7 +110,8 @@ def qwen3_generate_beam(
                 if logits_processor is not None:
                     logp = logits_processor(h, logp, paths_so_far)
             state = propagate(state, logp)
-    return decode_paths(state), state.scores
+    with named_scope("qwen3/paths"):
+        return decode_paths(state), state.scores
 
 
 @torch.no_grad()

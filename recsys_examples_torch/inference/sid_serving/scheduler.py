@@ -3,6 +3,13 @@ recsys_examples_tpu/inference/sid_serving/scheduler.py): submit / tick /
 run_until_empty, batches grouped by context bucket under a token budget,
 request timeouts, a context -> result prefix cache, beam policies. Host code
 only: the engine owns the device.
+
+A request's times (`submitted_at`, `admitted_at`, its deadline and the
+result's `latency_ms` and `queue_ms`) are on `time.perf_counter()`. A tick
+runs inside the span `serve/tick`, with `serve/admit` (expiry, the batch, and
+one `serve/queue` span a request admitted, from its submission to its
+admission, carrying its `request_id`), the engine's `serve/generate` and
+`serve/results`.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ from recsys_examples_torch.inference.sid_serving.engine import (
     GRServingEngine,
     _bucket,
 )
+from recsys_examples_torch.utils import observability
+from recsys_examples_torch.utils.observability import named_scope
 
 
 @dataclasses.dataclass
@@ -26,7 +35,7 @@ class GRServingRequest:
     context: np.ndarray              # flat SID stream
     top_k: int = 10
     submitted_at: float = 0.0
-    admitted_at: float = 0.0     # prefill dispatch time (timing breakdown)
+    admitted_at: float = 0.0     # when a tick took it into a batch
     deadline_s: float = 30.0
     result: Optional[dict] = None
     done: bool = False
@@ -85,7 +94,7 @@ class GRContinuousScheduler:
             request_id=uuid.uuid4().hex,
             context=np.asarray(context, np.int32),
             top_k=top_k,
-            submitted_at=time.time(),
+            submitted_at=time.perf_counter(),
             deadline_s=self.request_timeout_s,
         )
         self.metrics["submitted"] += 1
@@ -109,7 +118,23 @@ class GRContinuousScheduler:
     def tick(self) -> int:
         """Process one batch: pop compatible requests (same ctx bucket),
         run generation, fill results. Returns number processed."""
-        now = time.time()
+        with named_scope("serve/tick"):
+            with named_scope("serve/admit"):
+                batch = self._admit()
+            if not batch:
+                return 0
+            t0 = time.perf_counter()
+            paths, scores = self.engine.generate([r.context for r in batch])
+            self.metrics["batches"] += 1
+            self.metrics["decode_time_s"] += time.perf_counter() - t0
+            with named_scope("serve/results"):
+                self._results(batch, paths, scores)
+            return len(batch)
+
+    def _admit(self) -> List[GRServingRequest]:
+        """Expire timed-out requests, then take the next batch: head-of-line
+        requests of one context bucket, under the token budget."""
+        now = time.perf_counter()
         # expire timed-out requests
         alive = deque()
         for r in self.queue:
@@ -123,7 +148,7 @@ class GRContinuousScheduler:
                 alive.append(r)
         self.queue = alive
         if not self.queue:
-            return 0
+            return []
         # group head-of-line requests by context bucket
         cfg = self.engine.cfg
         head = self.queue[0]
@@ -140,19 +165,22 @@ class GRContinuousScheduler:
             else:
                 rest.append(r)
         self.queue.extend(rest)
+        now = time.perf_counter()
+        for r in batch:
+            r.admitted_at = now
+            observability.record("serve/queue", r.submitted_at, now,
+                                 request_id=r.request_id)
+        return batch
 
-        t0 = time.time()
-        paths, scores = self.engine.generate([r.context for r in batch])
-        dt = time.time() - t0
-        self.metrics["batches"] += 1
-        self.metrics["decode_time_s"] += dt
+    def _results(self, batch: List[GRServingRequest], paths, scores) -> None:
         for i, r in enumerate(batch):
             p_i, s_i = self.beam_policy.filter_results(paths[i], scores[i])
             k = min(r.top_k, len(s_i))
             r.result = {
                 "sids": p_i[:k].tolist(),
                 "scores": s_i[:k].tolist(),
-                "latency_ms": (time.time() - r.submitted_at) * 1e3,
+                "latency_ms": (time.perf_counter() - r.submitted_at) * 1e3,
+                "queue_ms": (r.admitted_at - r.submitted_at) * 1e3,
             }
             if self._prefix_cache_size:
                 if len(self._prefix_cache) >= self._prefix_cache_size:
@@ -164,7 +192,6 @@ class GRContinuousScheduler:
             r.done = True
             self.finished[r.request_id] = r
             self.metrics["completed"] += 1
-        return len(batch)
 
     def run_until_empty(self, max_ticks: int = 10_000) -> None:
         for _ in range(max_ticks):

@@ -40,6 +40,7 @@ from recsys_examples_torch.modules.losses import data_total
 from recsys_examples_torch.parallel.mesh import MODEL_AXIS, is_sp_replicated
 from recsys_examples_torch.training.train_state import OptimizerFactory
 from recsys_examples_torch.utils.device import resolve_device
+from recsys_examples_torch.utils.observability import named_scope
 
 
 @dataclasses.dataclass
@@ -93,34 +94,45 @@ class GRTrainer:
         """One step. `generator` supplies the dropout bits (needed when the
         config has dropout). The metrics stay on the device. With dynamic
         tables phase A reads one flag per table from the device (see
-        `dynamicemb/hashtable.py`); nothing else here waits for the card."""
-        batch = batch.to(self.device)
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
+        `dynamicemb/hashtable.py`); nothing else here waits for the card.
 
-        # ---- phase A: sparse forward; the embeddings are autograd leaves
-        emb, residuals = {}, {}
-        for name, tbl in self.sparse_tables.items():
-            _, e, residuals[name] = tbl.forward(
-                state.sparse[name], batch.features[name].values, train=True)
-            emb[name] = e.requires_grad_()
+        Spans (`utils/observability.py`): `train/step`, and inside it
+        `train/h2d`, phase A's `emb/phase_a` (one a table), `train/forward`,
+        `train/backward` (with the gradient reduction), `train/optimizer`,
+        phase C's `emb/phase_c` and `train/metrics`."""
+        with named_scope("train/step"):
+            with named_scope("train/h2d"):
+                batch = batch.to(self.device)
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
 
-        # ---- phase B: dense fwd/bwd and the dense optimizer
-        loss, _ = state.model(batch, train=True, embeddings=emb or None,
-                              generator=generator)
-        loss.backward()
-        self._reduce_grads(state.model)
-        state.optimizer.step()
+            # ---- phase A: sparse forward; the embeddings are autograd leaves
+            emb, residuals = {}, {}
+            for name, tbl in self.sparse_tables.items():
+                _, e, residuals[name] = tbl.forward(
+                    state.sparse[name], batch.features[name].values, train=True)
+                emb[name] = e.requires_grad_()
 
-        # ---- phase C: sparse backward (fused row optimizer)
-        for name, tbl in self.sparse_tables.items():
-            tbl.backward(state.sparse[name], residuals[name], emb[name].grad)
+            # ---- phase B: dense fwd/bwd and the dense optimizer
+            with named_scope("train/forward"):
+                loss, _ = state.model(batch, train=True, embeddings=emb or None,
+                                      generator=generator)
+            with named_scope("train/backward"):
+                loss.backward()
+                self._reduce_grads(state.model)
+            with named_scope("train/optimizer"):
+                state.optimizer.step()
 
-        emb_overflow = sum((r.num_overflow.sum() for r in residuals.values()),
-                           torch.zeros((), dtype=torch.int32, device=self.device))
-        state.step += 1
-        return state, {"loss": data_total(loss, self.data_group),
-                       "emb_overflow": data_total(emb_overflow, self.data_group)}
+            # ---- phase C: sparse backward (fused row optimizer)
+            for name, tbl in self.sparse_tables.items():
+                tbl.backward(state.sparse[name], residuals[name], emb[name].grad)
+
+            with named_scope("train/metrics"):
+                emb_overflow = sum((r.num_overflow.sum() for r in residuals.values()),
+                                   torch.zeros((), dtype=torch.int32, device=self.device))
+                state.step += 1
+                return state, {"loss": data_total(loss, self.data_group),
+                               "emb_overflow": data_total(emb_overflow, self.data_group)}
 
     def _reduce_grads(self, model: nn.Module):
         """Sum the sequence-parallel region's replicated grads over "model",

@@ -252,6 +252,19 @@ Phases (any failure exits non-zero):
              bound, the plain version's ms, F.layer_norm's ms beside the
              input LayerNorm's, and the launches of one 8-layer full-width
              train step through them (48).
+ 23. moe     the grouped expert GEMM (`ops/moe.py`, both epilogues) against
+             its plain version at LFM2-24B-A2B's widths (64 experts, top 4,
+             D 2048, I 1536) from a router draw at the serving cell's 2,048
+             rows (its decode step and its prefill alike), at 256 rows (batch
+             1), and on a skewed routing with empty experts and experts of
+             several row tiles; launched twice, equal bit for bit; event and
+             device (queued) ms, the bound, the plain version's ms and
+             `torch._grouped_mm`'s where the card's torch has it. K7 at D 64
+             with GQA group 4 (32 / 8 heads, W 256, S 256, N 0-2). Then a
+             4-layer LFM2 at full width through `qwen3_generate_beam`, with
+             `torch.cuda.set_sync_debug_mode("error")` around every MoE
+             layer and conv decode call (no host sync inside them), and its
+             grouped-GEMM launches (2 a MoE layer a pass).
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -414,12 +427,13 @@ def ptxas_entries(report):
 # setmaxnreg then moves the producer's registers to the consumer warpgroups
 # (240 each in K1 and K4's forward, 216 in K5 and K7, 232 in the backward
 # and K6). The fp32 scalar kernels of K6 and K7 keep their own ceiling
-# (ENTRY_CEILING). The fused pointwise kernels (hstu_layer_pointwise: 256
+# (ENTRY_CEILING). The grouped expert GEMM (moe_grouped_gemm) launches 384
+# threads too, its consumers at 232. The fused pointwise kernels (hstu_layer_pointwise: 256
 # threads, no setmaxnreg, no wgmma) are held to no spill within the 255
 # registers a thread can have.
 REGISTER_CEILING = {"hstu_attention_fwd": 168, "hstu_attention_bwd": 168,
                     "paged_hstu_attention": 168, "beam_decode_attention": 168,
-                    "hstu_layer_pointwise": 255}
+                    "hstu_layer_pointwise": 255, "moe_grouped_gemm": 168}
 ENTRY_CEILING = {"scalar::kernel": 128}
 WGMMA_LIBS = tuple(n for n in REGISTER_CEILING if n != "hstu_layer_pointwise")
 
@@ -4557,6 +4571,195 @@ def phase_pointwise():
     return res
 
 
+# ---------------------------------------------------------------- phase 23
+MOE_E, MOE_K, MOE_D, MOE_I = 64, 4, 2048, 1536    # LFM2-24B-A2B's expert layer
+MOE_T = 2048      # the serving cell's rows: 8 x 256 beams a decode step, 8 x 256 prefill tokens
+
+
+def moe_weights(gen):
+    r = lambda *s, std: (std * torch.randn(*s, generator=gen, device="cuda")).bfloat16()
+    return dict(gate=r(MOE_E, MOE_D, std=MOE_D ** -0.5), bias=r(MOE_E, std=0.02),
+                w13=r(MOE_E, 2 * MOE_I, MOE_D, std=MOE_D ** -0.5),
+                w2=r(MOE_E, MOE_D, MOE_I, std=MOE_I ** -0.5))
+
+
+def moe_case(gen, w, T, skew=0.0):
+    """A router draw over T rows (normed-like bf16 inputs); `skew` adds to
+    the first experts' bias, so a few take several row tiles and the last
+    get none."""
+    from recsys_examples_torch.ops import moe
+
+    x = torch.randn(T, MOE_D, generator=gen, device="cuda").bfloat16()
+    bias = w["bias"].float() + skew * torch.linspace(1, -1, MOE_E, device="cuda")
+    weights, experts = moe.route(x, w["gate"], bias, MOE_K)
+    order, offsets = moe.permute(experts, MOE_E)
+    xs = x[order // MOE_K]
+    h = moe.grouped_gemm_ref(xs, w["w13"], offsets, "swiglu")
+    return dict(xs=xs, h=h, offsets=offsets, order=order,
+                scale=weights.reshape(-1)[order].contiguous())
+
+
+def moe_gemm_calls(w, c):
+    """(name, kernel call, plain call, library call or None, bytes, FLOPs) of
+    each epilogue on case c."""
+    from recsys_examples_torch.ops import moe
+
+    M = c["xs"].shape[0]
+    counts = c["offsets"][1:] - c["offsets"][:-1]
+    touched = int((counts > 0).sum().item())
+    lib = getattr(torch, "_grouped_mm", None)
+    ends = c["offsets"][1:].contiguous()
+    out = []
+    for name, a, wt, kw in (
+            ("swiglu", c["xs"], w["w13"], {}),
+            ("scatter", c["h"], w["w2"], dict(row_scale=c["scale"], dst_rows=c["order"]))):
+        N, K = wt.shape[1], wt.shape[2]
+        n_out = N // 2 if name == "swiglu" else N
+        nbytes = 2 * touched * N * K + 2 * M * K + 2 * M * n_out + (12 * M if kw else 0)
+        out.append((name,
+                    lambda a=a, wt=wt, kw=kw, name=name: moe.grouped_gemm(a, wt, c["offsets"],
+                                                                          name, **kw),
+                    lambda a=a, wt=wt, kw=kw, name=name: moe.grouped_gemm_ref(
+                        a, wt, c["offsets"], name, **kw),
+                    None if lib is None else
+                    (lambda a=a, wt=wt: lib(a, wt.transpose(1, 2), offs=ends,
+                                            out_dtype=torch.bfloat16)),
+                    nbytes, 2 * M * K * N))
+    return out
+
+
+def phase_moe():
+    """23. The grouped expert GEMM against its plain version and timed (each
+    epilogue's largest error over the three routing cases); K7 at D 64, GQA
+    group 4; LFM2-24B-A2B whole without a host sync in its MoE and conv
+    layers, its grouped-GEMM launches counted over one generate."""
+    from recsys_examples_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    w = moe_weights(gen)
+    res = {}
+    for tag, T, skew in (("t2048", MOE_T, 0.0), ("t256", 256, 0.0), ("skew", 600, 0.6)):
+        c = moe_case(gen, w, T, skew)
+        counts = (c["offsets"][1:] - c["offsets"][:-1]).tolist()
+        for name, kern, plain, lib, nbytes, flops in moe_gemm_calls(w, c):
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+            same = torch.equal(got, kern())
+            line = (f"phase23 {tag} {name}: rows {sum(counts)}, experts hit "
+                    f"{sum(n > 0 for n in counts)}, most rows {max(counts)}, max_abs_err "
+                    f"{err:.3e} (max|ref| {ref:.3e}), rel L2 {rel:.3e}, repeat equal {same}")
+            if not (within(err, ref) and rel < 8e-3 and same):
+                log(line)
+                raise SystemExit(f"phase23 {tag} {name}: kernel disagrees with its plain version")
+            if tag == "t2048":
+                k_ms = median_time_ms(kern, 20)
+                d_ms = queued_ms(kern)
+                p_ms = median_time_ms(plain, 3)
+                lib_ms = None
+                if lib is not None:
+                    try:
+                        lib_ms = median_time_ms(lib, 20)
+                    except Exception as exc:   # noqa: BLE001 - a yardstick only
+                        log(f"phase23 torch._grouped_mm refused: {str(exc)[:200]}")
+                bound_ms, by = bound_of(nbytes, flops)
+                res[name] = dict(kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                 bound_ms=bound_ms, bound_by=by, err=err)
+                line += (f"; kernel {k_ms:.4f} ms, device {d_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; "
+                         f"{100 * bound_ms / d_ms:.1f}% of it), plain {p_ms:.3f} ms, "
+                         f"_grouped_mm {lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+            log(line)
+            res[f"err_{name}"] = max(res.get(f"err_{name}", 0.0), err)
+        del c
+    del w
+    torch.cuda.empty_cache()
+    # K7 at LFM2's attention widths: 32 query heads over 8 kv heads of 64
+    bgen = torch.Generator(device="cuda").manual_seed(SEED + 123)
+    lens = [256, 131, 200, 77, 252, 128, 1, 190]
+    for N in (0, 1, 2):
+        c = beam_case(bgen, 8, 256, 32, 8, 64, 256, N, lens)
+        r = check_beam_case(f"lfm2 D64 G4 N{N}", c, timed=N == 2)
+        res["k7_err"] = max(res.get("k7_err", 0.0), r["err"])
+        if N == 2:
+            res["k7_d64"] = {k: v for k, v in r.items() if k != "out"}
+    res["sync"] = phase_moe_sync()
+    return res
+
+
+def lfm2_full_width(seed):
+    """LFM2-24B-A2B whole (40 layers, 47.6 GB), built on `meta` and given
+    bf16 weights drawn as `init_weights` draws them, so that no fp32 copy
+    is ever made."""
+    from recsys_examples_torch.models import lfm2_moe as lm
+
+    cfg = lm.Lfm2MoeConfig()
+    model = lm.Lfm2MoeModel(cfg, device="meta")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    weights = {}
+    for name, p in model.named_parameters():
+        if name.endswith("norm"):
+            weights[name] = torch.ones(p.shape, dtype=torch.bfloat16, device="cuda")
+            continue
+        std = (0.1 if name.endswith("expert_bias") else cfg.hidden_size ** -0.5
+               if name == "embed_tokens.weight" else p.shape[-1] ** -0.5)
+        weights[name] = torch.randn(p.shape, generator=gen, device="cuda",
+                                    dtype=torch.bfloat16).mul_(std)
+    model.load_state_dict(weights, strict=True, assign=True)
+    return cfg, model.eval()
+
+
+def phase_moe_sync():
+    """LFM2-24B-A2B whole through `qwen3_generate_beam` at the serving
+    cell's batch and beam: every MoE layer's and conv decode's call under
+    sync debug mode "error"; the grouped-GEMM launches of one generate
+    counted (38 MoE layers x 2 epilogues x 4 passes)."""
+    from recsys_examples_torch.inference.sid_serving.qwen3_runtime import qwen3_generate_beam
+    from recsys_examples_torch.models import lfm2_moe as lm
+    from recsys_examples_torch.ops import moe
+
+    cfg, model = lfm2_full_width(SEED + 223)
+
+    def strict(fn):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    rng = np.random.default_rng(SEED + 23)
+    lens = rng.integers(128, 253, 8)
+    tokens = np.zeros((8, 256), np.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    qwen3_generate_beam(model, tokens, lens, 4, 256)   # builds and warms
+    torch.cuda.synchronize()
+    fwd, dec = lm.Lfm2SparseMoe.forward, lm.Lfm2ShortConv.decode
+    lm.Lfm2SparseMoe.forward, lm.Lfm2ShortConv.decode = strict(fwd), strict(dec)
+    before = moe.grouped_gemm.launches
+    try:
+        paths, scores = qwen3_generate_beam(model, tokens, lens, 4, 256)
+        torch.cuda.synchronize()
+    finally:
+        lm.Lfm2SparseMoe.forward, lm.Lfm2ShortConv.decode = fwd, dec
+    launches = moe.grouped_gemm.launches - before
+    ok = bool(torch.isfinite(scores).all().item())
+    want = 2 * 4 * (cfg.num_layers - cfg.num_dense_layers)
+    log(f"phase23 sync: a whole LFM2-24B-A2B generate (B 8, W 256, 4 steps) ran its MoE and "
+        f"conv decode calls under sync debug mode error; {launches} grouped-GEMM launches "
+        f"({cfg.num_layers - cfg.num_dense_layers} MoE layers x 2 x 4 passes = {want}), "
+        f"scores finite {ok}")
+    if launches != want or not ok:
+        raise SystemExit(f"phase23 sync: {launches} launches, scores finite {ok}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4603,6 +4806,7 @@ def main():
     res["sid_path"] = timed("phase 20", phase_sid_path)
     res["qwen3"] = timed("phase 21", phase_qwen3)
     res["pointwise"] = timed("phase 22", phase_pointwise)
+    res["moe"] = timed("phase 23", phase_moe)
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -4746,6 +4950,22 @@ def main():
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],      # F.layer_norm, events, input LayerNorm only
+        })
+    g = res["moe"]
+    for name in ("swiglu", "scatter"):
+        kernels.append({
+            "name": f"moe_grouped_gemm_{name}",
+            "route": "cuda",
+            "source": "recsys_examples_torch/csrc/moe_grouped_gemm.cu",
+            "replaces": None,       # none: the JAX package has no expert layer
+            "launches": g["sync"]["launches"] // 2,   # a whole generate, phase 23
+            "max_abs_err": g[f"err_{name}"],          # this epilogue's own, three routings
+            "ms": g[name]["kernel_ms"],
+            "device_ms": g[name]["device_ms"],
+            "plain_ms": g[name]["plain_ms"],
+            "bound_ms": g[name]["bound_ms"],
+            "bound_by": g[name]["bound_by"],
+            "library_ms": g[name]["library_ms"],    # torch._grouped_mm, where present
         })
     log(f"phases took {time.perf_counter() - t_phases:.1f} s after the build "
         f"({time.perf_counter() - t_start:.1f} s in all)")

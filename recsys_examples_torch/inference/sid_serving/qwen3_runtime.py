@@ -8,6 +8,12 @@ each earlier step's KV, and are re-rooted through the parents after every
 step. An optional per-step logits mask and a logits processor chain (in
 that order) plug in constrained decoding.
 
+The backbone is a `Qwen3Model` or an `Lfm2MoeModel` (`models/lfm2_moe.py`):
+both give `prefill`, `decode_step` and `beam_layout`, the kind of each
+layer and the row shapes of its state at one beam step. The beam state is
+per layer: K/V for an attention layer, z rows for a conv layer, all under
+the one ancestry. A conv layer's state writes run in the span `conv/state`.
+
 Everything runs on the model's device; `tokens` and `lengths` may be numpy
 arrays or tensors. `qwen3_generate_beam` runs in spans (`named_scope`):
 `serve/pack` (the inputs to the device), `qwen3/prefill`, `qwen3/expand`
@@ -30,6 +36,24 @@ from recsys_examples_torch.models.qwen3 import Qwen3Model
 from recsys_examples_torch.utils.observability import named_scope
 
 
+def _keep(beam, new_state, layout, slot: int) -> None:
+    """This step's state of every layer into beam slot `slot`; the conv
+    layers' z rows in the span `conv/state`."""
+    conv = {li for li, (kind, _) in enumerate(layout) if kind == "conv"}
+
+    def put(li):
+        for buf, t in zip(beam[li], new_state[li]):
+            buf[:, slot] = t
+
+    for li in range(len(layout)):
+        if li not in conv:
+            put(li)
+    if conv:
+        with named_scope("conv/state"):
+            for li in sorted(conv):
+                put(li)
+
+
 def _on(model: Qwen3Model, tokens, lengths):
     dev = model.device
     return (torch.as_tensor(tokens, device=dev).to(torch.int64),
@@ -42,7 +66,7 @@ def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def qwen3_generate_beam(
-    model: Qwen3Model,
+    model: Qwen3Model,      # or an Lfm2MoeModel
     tokens,                 # [B, N] context (history SID stream)
     lengths,                # [B]
     num_steps: int,
@@ -60,11 +84,11 @@ def qwen3_generate_beam(
     with named_scope("serve/pack"):
         tokens, lengths = _on(model, tokens, lengths)
     dev = tokens.device
-    B, W, L = tokens.shape[0], beam_width, cfg.num_layers
-    Hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    B, W = tokens.shape[0], beam_width
+    layout = model.beam_layout()
 
     with named_scope("qwen3/prefill"):
-        last_logits, ctx_kv = model.prefill(tokens, lengths)
+        last_logits, ctx_state = model.prefill(tokens, lengths)
     with named_scope("qwen3/expand"):
         logp0 = _log_softmax(last_logits)
         state = init_beam(B, W, num_steps, device=dev)
@@ -78,9 +102,8 @@ def qwen3_generate_beam(
                 torch.zeros((B, 1, 0), dtype=torch.int64, device=dev))[:, 0]
         state = first_expand(state, logp0)
 
-        kv_shape = (B, num_steps - 1, W, Hkv, dh)
-        beam_k = [torch.zeros(kv_shape, dtype=cfg.dtype, device=dev) for _ in range(L)]
-        beam_v = [torch.zeros(kv_shape, dtype=cfg.dtype, device=dev) for _ in range(L)]
+        beam = [tuple(torch.zeros((B, num_steps - 1, W) + row, dtype=cfg.dtype, device=dev)
+                      for row in rows) for _, rows in layout]
         A = torch.zeros((B, max(num_steps - 1, 1), W), dtype=torch.int64, device=dev)
         ident = torch.arange(W, device=dev).expand(B, W)
 
@@ -92,15 +115,12 @@ def qwen3_generate_beam(
                                              par[:, None, :].expand(B, h - 1, W))
             tok = state.tokens[:, h - 1, :]                      # [B, W]
             pos = (lengths[:, None] + (h - 1)).expand(B, W)
-            logits, new_kv = model.decode_step(
-                tok, pos, ctx_kv, lengths,
-                [(beam_k[li][:, : h - 1], beam_v[li][:, : h - 1]) for li in range(L)]
-                if h > 1 else None,
+            logits, new_state = model.decode_step(
+                tok, pos, ctx_state, lengths,
+                [tuple(b[:, : h - 1] for b in bufs) for bufs in beam] if h > 1 else None,
                 A[:, : h - 1] if h > 1 else None,
             )
-            for li in range(L):
-                beam_k[li][:, h - 1] = new_kv[li][0]
-                beam_v[li][:, h - 1] = new_kv[li][1]
+            _keep(beam, new_state, layout, h - 1)
             A[:, h - 1] = ident
             logp = _log_softmax(logits)
             if logits_mask_fn is not None or logits_processor is not None:

@@ -231,6 +231,12 @@ class Qwen3Model(nn.Module):
                 p.fill_(1.0)
         return self
 
+    def beam_layout(self):
+        """Per layer: its kind and the row shapes of its state at one beam
+        step, (k, v) [Hkv, dh] each (`qwen3_runtime`'s beam buffers)."""
+        kv = (self.config.num_kv_heads, self.config.head_dim)
+        return [("attn", (kv, kv))] * self.config.num_layers
+
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens.weight[tokens].to(self.config.dtype)
 

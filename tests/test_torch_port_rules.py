@@ -29,7 +29,7 @@ ENTRY_SLICE = (
     "ops/hstu_attention_ref.py", "jagged/jagged_tensor.py", "tools/__init__.py",
     "tools/kernel_parity.py", "tools/convergence_synthetic.py",
     "tools/convergence_retrieval.py", "tools/convergence_sid.py", "tools/build_sid_mapping.py",
-    "tools/serving_soak.py", "tools/http_loadgen.py",
+    "tools/serving_soak.py", "tools/http_loadgen.py", "models/lfm2_moe.py", "ops/moe.py",
 )
 
 

@@ -15,9 +15,9 @@ Phases (any failure exits non-zero):
              no instance spills or passes its library's register ceiling,
              no setmaxnreg is dropped and ptxas serialises no wgmma chain.
              (b) the wgmma descriptors, TMA panels and register-A fragments
-             of K1, K2/K3, K5 (the int8 s8 chain, exact, and V widened) and
-             K7 (cp.async Q, a 3-D TMA chunk), one tile pair per head dim,
-             against torch.matmul.
+             of K1, K2/K3, K5 (the int8 s8 chain, exact, and V widened), K7
+             (cp.async Q, a 3-D TMA chunk) and Q1 (128-key chunks), one tile
+             pair per head dim, against torch.matmul.
   2. kernel  paged SiLU delta attention (K6: wgmma, keys split over a
              cluster) against its plain version in bf16 at the serving shapes
              (H=4, dh=256, page 128, B=8, S in {128, 512}, ragged cache, with
@@ -264,7 +264,24 @@ Phases (any failure exits non-zero):
              4-layer LFM2 at full width through `qwen3_generate_beam`, with
              `torch.cuda.set_sync_debug_mode("error")` around every MoE
              layer and conv decode call (no host sync inside them), and its
-             grouped-GEMM launches (2 a MoE layer a pass).
+             grouped-GEMM launches (2 a MoE layer a pass) and its prefill
+             attention launches (Q1, one an attention layer: 10).
+ 24. prefill the causal GQA prefill attention Q1 (`ops/prefill_attention.py`)
+             against its plain version and against its own arithmetic in
+             plain PyTorch (`prefill_attn_tiled_ref`), on valid rows, rows at
+             or past each length exactly zero, two launches equal bit for
+             bit: at the qwen3_sid_ctx1k cell's shape (B 8, bucket 1024,
+             contexts 512-1016, 16 / 8 heads of 128) and lfm2_sid_beam256's
+             (B 8, bucket 256, 32 / 8 x 64), lengths 1, 127-129 and the whole
+             bucket at a bucket + 3 (the teacher-forced prefill's), a padded
+             head dim (96), the fp32 scalar kernel; at both cell shapes its
+             event and device (queued) ms against the valid pairs' bound, the
+             plain version's ms and, as a yardstick only, causal
+             `F.scaled_dot_product_attention`'s. Then Qwen3-1.7B whole: its
+             prefill at the ctx1k shape profiled (Q1, GEMMs, the rest) and a
+             whole `qwen3_generate_beam` under
+             `torch.cuda.set_sync_debug_mode("error")`, Q1 launched once a
+             layer (28) on the wrapper's counter and on the tracer's.
 The second-to-last lines are the `kernels` JSON line and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
 """
@@ -427,13 +444,15 @@ def ptxas_entries(report):
 # setmaxnreg then moves the producer's registers to the consumer warpgroups
 # (240 each in K1 and K4's forward, 216 in K5 and K7, 232 in the backward
 # and K6). The fp32 scalar kernels of K6 and K7 keep their own ceiling
-# (ENTRY_CEILING). The grouped expert GEMM (moe_grouped_gemm) launches 384
-# threads too, its consumers at 232. The fused pointwise kernels (hstu_layer_pointwise: 256
+# (ENTRY_CEILING). The grouped expert GEMM (moe_grouped_gemm) and the
+# prefill attention Q1 (prefill_attention) launch 384 threads too, their
+# consumers at 232 and 240. The fused pointwise kernels (hstu_layer_pointwise: 256
 # threads, no setmaxnreg, no wgmma) are held to no spill within the 255
 # registers a thread can have.
 REGISTER_CEILING = {"hstu_attention_fwd": 168, "hstu_attention_bwd": 168,
                     "paged_hstu_attention": 168, "beam_decode_attention": 168,
-                    "hstu_layer_pointwise": 255, "moe_grouped_gemm": 168}
+                    "hstu_layer_pointwise": 255, "moe_grouped_gemm": 168,
+                    "prefill_attention": 168}
 ENTRY_CEILING = {"scalar::kernel": 128}
 WGMMA_LIBS = tuple(n for n in REGISTER_CEILING if n != "hstu_layer_pointwise")
 
@@ -477,8 +496,10 @@ def phase_tile_check():
     widened as K5's widening warps do. K7: a Q tile copied into the panel
     layout by cp.async and a chunk of K/V loaded through a 3-D map, the
     score chain K-major and the output chain from the softmax's accumulator
-    layout, B MN-major. Products of bf16 values are exact in fp32, so only
-    the order of the sums differs."""
+    layout, B MN-major. Q1: a Q tile and a 128-key chunk both loaded
+    through 3-D maps, the m64n128 score chain K-major and the output chain
+    from the accumulator layout over 128 keys. Products of bf16 values are
+    exact in fp32, so only the order of the sums differs."""
     import ctypes
 
     from recsys_examples_torch.utils import cuda_build
@@ -492,7 +513,10 @@ def phase_tile_check():
                (32, 64, 128, 256)),
               ("K7", "beam_decode_attention", "beam_tile_check_launch",
                ("score (cp.async Q, 3-D TMA chunk, K-major)", "output (register A, MN-major)"),
-               (32, 64, 128, 256)))
+               (32, 64, 128, 256)),
+              ("Q1", "prefill_attention", "prefill_tile_check_launch",
+               ("score (3-D TMA Q and 128-key chunk, K-major, n128)",
+                "output (register A over 128 keys, MN-major)"), (64, 128)))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(torch.bfloat16)
     i8 = lambda *sh: torch.randint(-127, 128, sh, generator=gen, device="cuda",
@@ -501,20 +525,22 @@ def phase_tile_check():
         fn = getattr(cuda_build.load(lib), entry)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        keys = 128 if kernel == "Q1" else 64
         for dh in dims:
-            a, pm = r(64, dh), r(64, 64)
+            a, pm = r(64, dh), r(64, keys)
             b = i8(64, dh) if kernel == "K5" else r(64, dh)
             if kernel == "K5":
                 a = i8(64, dh)
-            x = r(2, 64, dh) if kernel == "K7" else b    # K7 reads its chunk from batch 1
-            s = torch.full((64, 64), float("nan"), device="cuda")
+            # K7 and Q1 read their chunk from batch 1
+            x = r(2, keys, dh) if kernel in ("K7", "Q1") else b
+            s = torch.full((64, keys), float("nan"), device="cuda")
             o = torch.full((64, dh), float("nan"), device="cuda")
             err = fn(a.data_ptr(), x.data_ptr(), pm.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
                      torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             if err:
                 raise SystemExit(f"phase1b {kernel} dh={dh}: launch failed with error {err}")
-            if kernel == "K7":
+            if kernel in ("K7", "Q1"):
                 b = x[1]
             for tag, got, want in ((tags[0], s, a.float() @ b.float().T),
                                    (tags[1], o, pm.float() @ b.float())):
@@ -4719,6 +4745,7 @@ def phase_moe_sync():
     from recsys_examples_torch.inference.sid_serving.qwen3_runtime import qwen3_generate_beam
     from recsys_examples_torch.models import lfm2_moe as lm
     from recsys_examples_torch.ops import moe
+    from recsys_examples_torch.ops.prefill_attention import prefill_attn
 
     cfg, model = lfm2_full_width(SEED + 223)
 
@@ -4740,25 +4767,216 @@ def phase_moe_sync():
     torch.cuda.synchronize()
     fwd, dec = lm.Lfm2SparseMoe.forward, lm.Lfm2ShortConv.decode
     lm.Lfm2SparseMoe.forward, lm.Lfm2ShortConv.decode = strict(fwd), strict(dec)
-    before = moe.grouped_gemm.launches
+    before, q1_before = moe.grouped_gemm.launches, prefill_attn.launches
     try:
         paths, scores = qwen3_generate_beam(model, tokens, lens, 4, 256)
         torch.cuda.synchronize()
     finally:
         lm.Lfm2SparseMoe.forward, lm.Lfm2ShortConv.decode = fwd, dec
     launches = moe.grouped_gemm.launches - before
+    q1 = prefill_attn.launches - q1_before
     ok = bool(torch.isfinite(scores).all().item())
     want = 2 * 4 * (cfg.num_layers - cfg.num_dense_layers)
+    attn_layers = sum(t == "full_attention" for t in cfg.layer_types)
     log(f"phase23 sync: a whole LFM2-24B-A2B generate (B 8, W 256, 4 steps) ran its MoE and "
         f"conv decode calls under sync debug mode error; {launches} grouped-GEMM launches "
         f"({cfg.num_layers - cfg.num_dense_layers} MoE layers x 2 x 4 passes = {want}), "
+        f"{q1} prefill attention (Q1) launches ({attn_layers} attention layers), "
         f"scores finite {ok}")
-    if launches != want or not ok:
-        raise SystemExit(f"phase23 sync: {launches} launches, scores finite {ok}")
+    if launches != want or q1 != attn_layers or not ok:
+        raise SystemExit(f"phase23 sync: {launches} launches, {q1} Q1 launches, "
+                         f"scores finite {ok}")
     del model
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "prefill_launches": q1}
 
+
+# ---------------------------------------------------------------- phase 24
+# The serving cells' prefill attention: B, bucket, context lengths [lo, hi),
+# H, Hkv, D (qwen3_sid_ctx1k on Qwen3-1.7B; lfm2_sid_beam256's GQA layers)
+PREFILL_CELLS = {"ctx1k": (8, 1024, (512, 1017), 16, 8, 128),
+                 "lfm2": (8, 256, (128, 253), 32, 8, 64)}
+# the rest: (name, B, N, lengths, H, Hkv, D, dtype); N 1027 is a bucket + 3,
+# as the teacher-forced prefill pads
+PREFILL_EDGES = (
+    ("edges_g2_d128", 6, 1027, (1, 127, 128, 129, 1027, 700), 16, 8, 128, torch.bfloat16),
+    ("edges_g4_d64", 5, 300, (1, 127, 128, 129, 300), 32, 8, 64, torch.bfloat16),
+    ("padded_d96", 3, 200, (200, 0, 129), 4, 2, 96, torch.bfloat16),
+    ("fp32_g2_d128", 3, 300, (300, 129, 1), 4, 2, 128, torch.float32),
+    ("fp32_g4_d64", 2, 130, (130, 33), 8, 2, 64, torch.float32),
+)
+# Q1 against its own arithmetic in bf16: the worst batch row's relative L2
+# (tests/test_torch_prefill_attention.py TILED_REL_L2)
+PREFILL_TILED_REL_L2 = 1e-3
+
+
+def prefill_case(gen, B, N, lengths, H, Hkv, D, dtype=torch.bfloat16):
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+    return dict(q=r(B, N, H, D), k=r(B, N, Hkv, D), v=r(B, N, Hkv, D),
+                lengths=torch.tensor(lengths, dtype=torch.int64, device="cuda"))
+
+
+def prefill_work(c):
+    """Bytes (q, k and v of the valid rows read once, the whole output
+    written once, the lengths) and FLOPs (two products of 2 D a valid causal
+    pair) of one call."""
+    B, N, H, D = c["q"].shape
+    Hkv = c["k"].shape[2]
+    esz = c["q"].element_size()
+    lens = c["lengths"].clamp(0, N).tolist()
+    nbytes = sum(lens) * (H + 2 * Hkv) * D * esz + B * N * H * D * esz + B * 8
+    return nbytes, 4 * sum(n * (n + 1) // 2 for n in lens) * H * D
+
+
+def prefill_errors(got, want, lengths):
+    """Over each batch row's valid rows: the largest error, the worst batch
+    row's error over its tolerance (BEAM_LIMITS of the dtype: rtol x max|ref
+    row| + atol), the worst batch row's relative L2, the share of values
+    that differ at all, and whether the two-ulp rule of
+    tests/test_torch_hstu_pointwise.py (`_bf16_close`) holds."""
+    lim = BEAM_LIMITS[want.dtype]
+    err = worst = rel = 0.0
+    differ = total = 0
+    two_ulp = True
+    for b, n in enumerate(lengths.clamp(0, got.shape[1]).tolist()):
+        if n == 0:
+            continue
+        g, w = got[b, :n].float(), want[b, :n].float()
+        d = (g - w).abs()
+        e, top = d.max().item(), w.abs().max().item()
+        err = max(err, e)
+        worst = max(worst, e / (lim["rtol"] * top + lim["atol"]))
+        rel = max(rel, (d.norm() / w.norm().clamp_min(1e-30)).item())
+        differ += int((d > 0).sum().item())
+        total += d.numel()
+        two_ulp &= not bool((d > w.abs() * 2.0 ** -6 + 1e-5 * top).any().item())
+    share = differ / max(total, 1)
+    return dict(err=err, worst=worst, rel=rel, share=share, bf16_close=two_ulp and share <= 0.01,
+                ok=worst < 1 and rel < lim["rel_l2"])
+
+
+def check_prefill_case(name, c, timed=False, iters=20):
+    """Q1 on one case against its plain version (BEAM_LIMITS) and its tiled
+    arithmetic (the same, and PREFILL_TILED_REL_L2), on valid rows; rows at
+    or past each length exactly zero; two launches equal bit for bit. With `timed`, its event and queued (device) ms, the valid
+    pairs' bound, the plain version's ms and causal SDPA's."""
+    import torch.nn.functional as F
+
+    from recsys_examples_torch.ops import prefill_attention as pa
+
+    args = (c["q"], c["k"], c["v"], c["lengths"])
+    B, N, H, D = c["q"].shape
+    scale = D ** -0.5
+    run = lambda: pa.prefill_attn(*args, scale)
+    got = run()
+    torch.cuda.synchronize()
+    same = torch.equal(got, run())
+    dense = prefill_errors(got, pa.prefill_attn_ref(*args, scale), c["lengths"])
+    tiled = prefill_errors(got, pa.prefill_attn_tiled_ref(*args, scale), c["lengths"])
+    pad = torch.arange(N, device="cuda")[None, :] >= c["lengths"][:, None]
+    zero = bool((got[pad] == 0).all().item()) and bool(torch.isfinite(got).all().item())
+    fmt = lambda e: (f"max_abs_err={e['err']:.3e} worst row at {e['worst']:.3f} of its tol, "
+                     f"rel L2 {e['rel']:.3e}, {100 * e['share']:.2f}% of values differ, "
+                     f"two-ulp rule {e['bf16_close']}")
+    line = (f"phase24 {name}: q={tuple(c['q'].shape)} Hkv={c['k'].shape[2]} "
+            f"{str(c['q'].dtype)[6:]} lengths {c['lengths'].tolist()[:8]}; against the plain "
+            f"version {fmt(dense)}; against its tiled arithmetic {fmt(tiled)}; padded rows "
+            f"zero {zero}, repeat equal {same}")
+    res = dict(err=dense["err"], dense=dense, tiled=tiled)
+    if timed:
+        kernel_ms = median_time_ms(run, iters)
+        dev_ms = queued_ms(run)
+        plain_ms = cuda_time_ms(lambda: pa.prefill_attn_ref(*args, scale), 3)
+        qt, kt, vt = (c[x].transpose(1, 2) for x in ("q", "k", "v"))
+        lib_ms = None
+        try:   # a yardstick only: the port never calls it
+            lib_ms = median_time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=H != c["k"].shape[2]), iters)
+        except Exception as exc:   # noqa: BLE001
+            log(f"phase24 {name}: F.scaled_dot_product_attention refused: {str(exc)[:200]}")
+        nbytes, flops = prefill_work(c)
+        bound_ms, by = bound_of(nbytes, flops)
+        res.update(kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=by)
+        line += (f"; kernel {kernel_ms:.4f} ms, device {dev_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                 f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+                 f"{100 * bound_ms / dev_ms:.1f}% of it), plain {plain_ms:.3f} ms, causal SDPA "
+                 f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+    log(line)
+    own = tiled["rel"] < (PREFILL_TILED_REL_L2 if c["q"].dtype == torch.bfloat16 else 1e-5)
+    if not (dense["ok"] and tiled["ok"] and own and same and zero):
+        raise SystemExit(f"phase24 {name}: Q1 disagrees with its plain version or its tiled "
+                         "arithmetic, a padded row is not zero, or two launches differ")
+    return res
+
+
+def phase_prefill_model():
+    """Qwen3-1.7B whole at the ctx1k shape: its prefill profiled by kind,
+    then one `qwen3_generate_beam` (beam 64, 4 steps) under sync debug mode
+    "error", its Q1 launches on the wrapper's counter and on the tracer's."""
+    from recsys_examples_torch.inference.sid_serving.qwen3_runtime import qwen3_generate_beam
+    from recsys_examples_torch.models.qwen3 import Qwen3Config
+    from recsys_examples_torch.ops import prefill_attention as pa
+    from recsys_examples_torch.utils import observability
+
+    cfg = Qwen3Config()
+    model = qwen3_model(cfg)
+    rng = np.random.default_rng(SEED + 24)
+    ctxs = qwen3_contexts(rng, 8, 512, 1017, cfg.vocab_size)
+    tokens = np.zeros((8, 1024), np.int64)
+    for i, ctx in enumerate(ctxs):
+        tokens[i, :len(ctx)] = ctx
+    tok = torch.as_tensor(tokens, device="cuda")
+    lens = torch.as_tensor([len(ctx) for ctx in ctxs], device="cuda")
+    qwen3_generate_beam(model, tok, lens, QWEN3_STEPS, 64)   # builds and warms
+    torch.cuda.synchronize()
+    split = profile_call(lambda: model.prefill(tok, lens),
+                         f"phase24 Qwen3-1.7B prefill, B 8, bucket 1024, contexts "
+                         f"{int(lens.min())}-{int(lens.max())}", top=8,
+                         groups={"Q1": ("prefill_wgmma",),
+                                 "GEMM": ("gemm", "nvjet", "cutlass", "xmma", "cublas"),
+                                 "elementwise": ("elementwise", "vectorized"),
+                                 "reduce": ("reduce",)},
+                         split={"Q1": "prefill_wgmma_kernel"})
+    before = pa.prefill_attn.launches
+    with observability.tracing():
+        observability.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            paths, scores = qwen3_generate_beam(model, tok, lens, QWEN3_STEPS, 64)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counted = observability.snapshot()["counters"].get(pa.COUNTER, 0)
+    launches = pa.prefill_attn.launches - before
+    ok = bool(torch.isfinite(scores).all().item())
+    log(f"phase24 a whole Qwen3-1.7B generate (B 8, bucket 1024, beam 64, {QWEN3_STEPS} "
+        f"steps) under sync debug mode error: Q1 launched {launches} times ({pa.COUNTER} "
+        f"{counted}; {cfg.num_layers} layers), {split.get('Q1')} in the profiled prefill, "
+        f"scores finite {ok}")
+    if not (launches == counted == split.get("Q1") == cfg.num_layers and ok):
+        raise SystemExit("phase24: Q1 did not launch once a layer in the generate")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_prefill():
+    """24. Q1 against its plain version and its tiled arithmetic at the
+    serving cells' shapes (timed) and at the edges; then Qwen3-1.7B whole."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    rng = np.random.default_rng(SEED + 124)
+    res, err = {}, 0.0
+    for name, (B, N, (lo, hi), H, Hkv, D) in PREFILL_CELLS.items():
+        lens = rng.integers(lo, hi, B).tolist()
+        res[name] = check_prefill_case(name, prefill_case(gen, B, N, lens, H, Hkv, D),
+                                       timed=True)
+        err = max(err, res[name]["err"])
+    for name, B, N, lens, H, Hkv, D, dt in PREFILL_EDGES:
+        c = prefill_case(gen, B, N, lens, H, Hkv, D, dt)
+        err = max(err, check_prefill_case(name, c)["err"])
+    torch.cuda.empty_cache()
+    res.update(err=err, launches=phase_prefill_model())
+    return res
 
 def main():
     if not torch.cuda.is_available():
@@ -4807,6 +5025,7 @@ def main():
     res["qwen3"] = timed("phase 21", phase_qwen3)
     res["pointwise"] = timed("phase 22", phase_pointwise)
     res["moe"] = timed("phase 23", phase_moe)
+    res["prefill"] = timed("phase 24", phase_prefill)
 
     warm = res["paged"]["serve_warm"]
     kernels = [{
@@ -4966,6 +5185,24 @@ def main():
             "bound_ms": g[name]["bound_ms"],
             "bound_by": g[name]["bound_by"],
             "library_ms": g[name]["library_ms"],    # torch._grouped_mm, where present
+        })
+    pre = res["prefill"]
+    for dh, cell in ((128, "ctx1k"), (64, "lfm2")):
+        r = pre[cell]
+        kernels.append({
+            "name": f"prefill_attn_d{dh}",
+            "route": "cuda",
+            "source": "recsys_examples_torch/csrc/prefill_attention.cu",
+            "replaces": None,       # none: the JAX package's prefill attention is plain jnp
+            # a Qwen3 generate (phase 24); an LFM2 generate (phase 23)
+            "launches": pre["launches"] if dh == 128 else res["moe"]["sync"]["prefill_launches"],
+            "max_abs_err": pre["err"],
+            "ms": r["kernel_ms"],
+            "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],     # causal F.scaled_dot_product_attention
         })
     log(f"phases took {time.perf_counter() - t_phases:.1f} s after the build "
         f"({time.perf_counter() - t_start:.1f} s in all)")

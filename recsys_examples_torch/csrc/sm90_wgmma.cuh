@@ -3,10 +3,10 @@
 // product with A from shared memory or from registers, the int8 m64nNk32
 // product with int32 sums, the repack of an accumulator into A fragments,
 // its fence / commit / wait, the TMA tensor map (2-D and 3-D) and the panel
-// tile it loads, the widening of int8 rows into such a tile, the mbarrier
-// full/empty ring, named barriers, setmaxnreg, thread-block clusters
-// (barrier, distributed shared memory, launch) and the product chains of K1
-// and K6.
+// tile it loads (and, 3-D, stores), the widening of int8 rows into such a
+// tile, the mbarrier full/empty ring, named barriers, setmaxnreg,
+// thread-block clusters (barrier, distributed shared memory, launch) and the
+// product chains of K1 and K6.
 //
 // Tile layout. A [R][D] bf16 tile (R = 64 rows, or 32) arrives by TMA as
 // D / PW panels of [R rows][PW columns], PW = 64 (128-byte rows, 128-byte
@@ -149,6 +149,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 template <int R>
 __device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// (register A fragments: a product reads them until its wgmma_wait, so they
+// are held live to a fence after it, and nothing else takes their registers)
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -328,6 +335,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// Copy the box at (c0 = column, c1 = row, c2 = batch) of a 3-D `map` from
+// shared memory at `src` (the layout a load of the box gives); boxes past
+// the tensor's edge are cut. The copy is in the thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the thread's bulk groups but the last N have read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
                : "memory");
@@ -412,6 +439,9 @@ __device__ __forceinline__ uint4 ld_shared4(uint32_t a) {
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
   return v;
+}
+__device__ __forceinline__ void st_shared_b32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(a), "r"(v) : "memory");
 }
 __device__ __forceinline__ void st_shared4(uint32_t a, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"

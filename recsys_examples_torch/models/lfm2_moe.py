@@ -11,7 +11,8 @@ Two layer kinds and two FFN kinds, on one residual stream:
     causal over L = `conv_L_cache` positions, zeros before position 0),
     then out_proj. Its per-position state is z.
   - op "full_attention": `Qwen3Attention` (QK-norm, RoPE by halves, causal
-    GQA; kernel K7 in decode). Its per-position state is (k, v).
+    GQA; kernel Q1 in prefill, K7 in decode). Its per-position state is
+    (k, v).
   - ffn: a dense SwiGLU (w2(silu(w1 x) w3 x)) in the first
     `num_dense_layers` layers, the sparse expert layer (`ops/moe.py`) in the
     rest: sigmoid scores, top k of the scores plus `expert_bias`, weights
@@ -224,10 +225,10 @@ class Lfm2Layer(nn.Module):
     def _ffn(self, x):
         return x + self.feed_forward(self._norm(x, self.ffn_norm))
 
-    def prefill(self, x, positions, mask, lengths):
+    def prefill(self, x, positions, lengths):
         h = self._norm(x, self.operator_norm)
         if self.kind == "attn":
-            out, state = self.self_attn(h, positions, mask=mask)
+            out, state = self.self_attn(h, positions, lengths=lengths)
         else:
             out, state = self.conv.prefill(h, lengths)
         return self._ffn(x + out), state
@@ -300,13 +301,9 @@ class Lfm2MoeModel(nn.Module):
         dev = tokens.device
         x = self._embed(tokens)
         pos = torch.arange(N, device=dev)[None, :].expand(B, N)
-        ar = torch.arange(N, device=dev)
-        causal = ar[None, :, None] >= ar[None, None, :]
-        valid = ar[None, :] < lengths[:, None]
-        mask = causal & valid[:, :, None] & valid[:, None, :]
         states = []
         for layer in self.layers:
-            x, state = layer.prefill(x, pos, mask, lengths)
+            x, state = layer.prefill(x, pos, lengths)
             states.append(state)
         last = x[torch.arange(B, device=dev), (lengths - 1).clamp_min(0)]
         return self._logits(last), states

@@ -4,7 +4,10 @@ recsys_examples_tpu/models/qwen3.py).
 RMSNorm, per-head QK-norm then RoPE, GQA (num_kv_heads < num_heads), a
 SwiGLU MLP and an optional tied embedding head.
   - `prefill`: a full causal pass over [B, N] token ids -> per-layer context
-    KV and the last position's logits. Its attention is plain PyTorch (fp32
+    KV and the last position's logits. Its attention is
+    `ops.prefill_attention.prefill_attn`: kernel Q1 on CUDA tensors (a
+    causal GQA flash attention that reads the kv heads where they lie and
+    stops at each row's length), on CPU tensors the plain version (fp32
     scores, a -1e30 mask, an fp32 softmax, P cast to `dtype` before P.V), as
     the JAX package computes it outside any kernel.
   - `decode_step`: one beam step through `ops.beam_decode_attention.
@@ -40,9 +43,8 @@ from torch import nn
 from recsys_examples_torch.modules.mlp import lecun_normal_
 from recsys_examples_torch.modules.transformer import BeamAttnInputs, dense
 from recsys_examples_torch.ops.beam_decode_attention import beam_decode_attn
+from recsys_examples_torch.ops.prefill_attention import prefill_attn
 from recsys_examples_torch.utils.device import resolve_device
-
-NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,9 +115,9 @@ class Qwen3Attention(nn.Module):
 
     def forward(
         self,
-        x: torch.Tensor,                       # [B, P, D], or [B, W, D] in decode
-        positions: torch.Tensor,               # [B, P] token positions
-        mask: Optional[torch.Tensor] = None,   # [B, P, P] bool (prefill)
+        x: torch.Tensor,                          # [B, P, D], or [B, W, D] in decode
+        positions: torch.Tensor,                  # [B, P] token positions
+        lengths: Optional[torch.Tensor] = None,   # [B] valid positions (prefill)
         beam_ctx: Optional[BeamAttnInputs] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         cfg = self.config
@@ -146,16 +148,9 @@ class Qwen3Attention(nn.Module):
                 sm_scale=dh ** -0.5).to(dt)
             return dense(self.o_proj, out.reshape(B, W, H * dh), dt), (k, v)
 
-        # prefill: dense causal attention, GQA by repeating kv heads (query
-        # head h reads kv head h // G)
-        G = H // Hkv
-        kr = k.repeat_interleave(G, dim=2)
-        vr = v.repeat_interleave(G, dim=2)
-        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * dh ** -0.5
-        if mask is not None:
-            sc = torch.where(mask[:, None], sc, sc.new_full((), NEG_INF))
-        p = torch.softmax(sc, dim=-1).to(dt)
-        out = torch.einsum("bhqk,bkhd->bqhd", p.float(), vr.float()).to(dt)
+        # prefill: causal over each row's valid positions (query head h
+        # reads kv head h // G)
+        out = prefill_attn(q, k, v, lengths, dh ** -0.5)
         return dense(self.o_proj, out.reshape(B, P, H * dh), dt), (k, v)
 
 
@@ -185,10 +180,10 @@ class Qwen3Layer(nn.Module):
             torch.ones(config.hidden_size, device=device))
         self.mlp = Qwen3MLP(config, device)
 
-    def forward(self, x, positions, mask=None, beam_ctx=None):
+    def forward(self, x, positions, lengths=None, beam_ctx=None):
         cfg = self.config
         h = _rms_norm(x, self.input_layernorm, cfg.rms_norm_eps).to(cfg.dtype)
-        attn, kv = self.self_attn(h, positions, mask=mask, beam_ctx=beam_ctx)
+        attn, kv = self.self_attn(h, positions, lengths=lengths, beam_ctx=beam_ctx)
         x = x + attn
         h = _rms_norm(x, self.post_attention_layernorm, cfg.rms_norm_eps).to(cfg.dtype)
         return x + self.mlp(h), kv
@@ -257,13 +252,9 @@ class Qwen3Model(nn.Module):
         dev = tokens.device
         x = self._embed(tokens)
         pos = torch.arange(N, device=dev)[None, :].expand(B, N)
-        ar = torch.arange(N, device=dev)
-        causal = ar[None, :, None] >= ar[None, None, :]
-        valid = ar[None, :] < lengths[:, None]
-        mask = causal & valid[:, :, None] & valid[:, None, :]
         kvs = []
         for layer in self.layers:
-            x, kv = layer(x, pos, mask=mask)
+            x, kv = layer(x, pos, lengths=lengths)
             kvs.append(kv)
         last = x[torch.arange(B, device=dev), (lengths - 1).clamp_min(0)]
         return self._logits(last), kvs
